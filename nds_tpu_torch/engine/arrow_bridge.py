@@ -1,0 +1,369 @@
+# Copied from nds_tpu/engine/arrow_bridge.py; only import paths changed, and
+# from_arrow drops the fault-injection hook of the reference's resilience layer.
+"""Arrow <-> engine Table conversion.
+
+Arrow is the host-side interchange format (the `collect()` analog in the
+reference pulls rows to the Spark driver, nds_power.py:131; here results
+materialize as Arrow tables for reporting/validation/output writing).
+"""
+from __future__ import annotations
+
+import numpy as np
+import pyarrow as pa
+import pyarrow.compute as pc
+
+from .column import Column, Table, dec_dtype, dec_scale, is_dec
+
+
+def engine_dtype(t: pa.DataType, dec_as_int: bool = False) -> str:
+    if pa.types.is_integer(t):
+        return "int"
+    if pa.types.is_decimal(t):
+        # dec_as_int: exact scaled-int64 decimals (decimal_physical="i64");
+        # default keeps the f64 mapping (reference decimal toggle,
+        # nds/nds_schema.py:43-47)
+        return dec_dtype(t.scale) if dec_as_int else "float"
+    if pa.types.is_floating(t):
+        return "float"
+    if pa.types.is_date(t):
+        return "date"
+    if pa.types.is_boolean(t):
+        return "bool"
+    if pa.types.is_string(t) or pa.types.is_large_string(t) or \
+            pa.types.is_dictionary(t):
+        return "str"
+    raise TypeError(f"unsupported arrow type {t}")
+
+
+def engine_schema(schema: pa.Schema,
+                  dec_as_int: bool = False) -> tuple[list[str], list[str]]:
+    names = list(schema.names)
+    dtypes = [engine_dtype(f.type, dec_as_int) for f in schema]
+    return names, dtypes
+
+
+def _chunked_to_array(arr: pa.ChunkedArray | pa.Array) -> pa.Array:
+    if isinstance(arr, pa.ChunkedArray):
+        return arr.combine_chunks()
+    return arr
+
+
+def _decimal_to_scaled_i64(arr: pa.Array) -> np.ndarray:
+    """Exact decimal128(p,s) -> value*10^s as int64 (no float round-trip)."""
+    t = arr.type
+    # fast path only when every scaled value provably fits int64
+    # (10^18 < 2^63): the safe=False cast below would wrap silently
+    if t.precision <= 18:
+        mul = pa.scalar(10 ** t.scale, pa.decimal128(t.scale + 1, 0))
+        ints = pc.cast(pc.multiply(arr, mul), pa.int64(), safe=False)
+        ints = pc.fill_null(ints, 0)
+        return ints.to_numpy(zero_copy_only=False)
+    out = np.zeros(len(arr), dtype=np.int64)     # precision edge: exact loop
+    for i, d in enumerate(arr.to_pylist()):
+        if d is not None:
+            out[i] = int(d.scaleb(t.scale))
+    return out
+
+
+def from_arrow_column(arr, dec_as_int: bool = False) -> Column:
+    arr = _chunked_to_array(arr)
+    t = arr.type
+    dtype = engine_dtype(t, dec_as_int)
+    null_count = arr.null_count
+    if is_dec(dtype):
+        valid = ~np.asarray(arr.is_null()) if null_count else None
+        return Column(dtype, _decimal_to_scaled_i64(arr), valid)
+    if dtype == "str":
+        # encode at most ONCE (already-dictionary arrays pass through), and
+        # null indices fill host-side — the old float-NaN round-trip turned
+        # every null-bearing code array into a f64 copy
+        if not pa.types.is_dictionary(t):
+            arr = arr.dictionary_encode()
+        codes = pc.fill_null(arr.indices, -1) \
+            .to_numpy(zero_copy_only=False).astype(np.int32)
+        valid = None
+        if null_count:
+            valid = ~np.asarray(arr.is_null())
+            codes = np.where(valid, codes, -1)
+        # to_numpy over the value buffer, NOT to_pylist: a wide dictionary
+        # (100k+ distinct values) otherwise pays a Python-object loop per
+        # morsel/load
+        dictionary = arr.dictionary.to_numpy(zero_copy_only=False) \
+            .astype(object)
+        return Column("str", codes, valid, dictionary)
+    if dtype == "date":
+        valid = ~np.asarray(arr.is_null()) if null_count else None
+        ints = arr.cast(pa.int32())
+        if null_count:  # fill BEFORE to_numpy: nulls otherwise round-trip
+            ints = pc.fill_null(ints, 0)  # through float NaN -> int garbage
+        days = ints.to_numpy(zero_copy_only=False)
+        return Column("date", np.asarray(days, dtype=np.int32), valid)
+    if dtype == "float":
+        if pa.types.is_decimal(t):
+            arr = arr.cast(pa.float64())
+        vals = arr.to_numpy(zero_copy_only=False).astype(np.float64)
+        valid = ~np.asarray(arr.is_null()) if null_count else None
+        if valid is not None:
+            vals = np.where(valid, vals, 0.0)
+        return Column("float", vals, valid)
+    if dtype == "bool":
+        valid = ~np.asarray(arr.is_null()) if null_count else None
+        vals = arr.to_numpy(zero_copy_only=False)
+        vals = np.asarray(vals, dtype=bool)
+        return Column("bool", vals, valid)
+    # int
+    valid = ~np.asarray(arr.is_null()) if null_count else None
+    vals = arr.to_numpy(zero_copy_only=False)
+    if valid is not None:
+        vals = np.where(valid, vals, 0)
+    return Column("int", np.asarray(vals, dtype=np.int64), valid)
+
+
+def from_arrow(table: pa.Table, dec_as_int: bool = False) -> Table:
+    return Table(list(table.schema.names),
+                 [from_arrow_column(table.column(i), dec_as_int)
+                  for i in range(table.num_columns)])
+
+
+def to_arrow_column(col: Column) -> pa.Array:
+    v = col.validity
+    mask = None if col.valid is None else ~col.valid
+    if is_dec(col.dtype):
+        # output materialization is post-aggregation (small); exact loop.
+        # precision 20 covers any scaled int64 (<= 19 digits) and keeps the
+        # fast path available if the column round-trips back through
+        # _decimal_to_scaled_i64 (streamed-partials merge)
+        return pa.array(col.decode().tolist(),
+                        type=pa.decimal128(min(38, 20 + dec_scale(col.dtype)),
+                                           dec_scale(col.dtype)))
+    if col.dtype == "str":
+        codes = np.asarray(col.data)
+        d = col.dictionary if col.dictionary is not None \
+            else np.empty(0, dtype=object)
+        null_mask = (codes < 0) | ~v
+        safe = np.where(codes >= 0, codes, 0)
+        values = pa.array(list(d), type=pa.string())
+        indices = pa.array(safe.astype(np.int32),
+                           mask=null_mask if null_mask.any() else None)
+        return pa.DictionaryArray.from_arrays(indices, values).cast(pa.string())
+    if col.dtype == "date":
+        return pa.array(np.asarray(col.data, dtype=np.int32), type=pa.date32(),
+                        mask=mask)
+    if col.dtype == "float":
+        return pa.array(np.asarray(col.data, dtype=np.float64), mask=mask)
+    if col.dtype == "bool":
+        return pa.array(np.asarray(col.data, dtype=bool), mask=mask)
+    return pa.array(np.asarray(col.data, dtype=np.int64), mask=mask)
+
+
+def to_arrow(table: Table) -> pa.Table:
+    arrays = [to_arrow_column(c) for c in table.columns]
+    return pa.table(dict(zip(_dedupe(table.names), arrays))) \
+        if len(set(table.names)) != len(table.names) else \
+        pa.Table.from_arrays(arrays, names=table.names)
+
+
+# -- column value-range stats (narrow-lane planning) --------------------------
+# (lo, hi) per column in ENGINE units: raw ints for "int", epoch days for
+# "date", SCALED ints for decimals under decimal_physical="i64". Streaming
+# chooses per-column upload lanes from these ONCE per scan group, so morsel
+# widths are static per schedule (device.plan_lanes).
+
+def _stat_pair(t: pa.DataType, mn, mx, dec_as_int: bool):
+    """Convert an arrow min/max pair to engine units; None = no stats for
+    this column (it then rides the widest legal lane)."""
+    if mn is None or mx is None:
+        return None
+    if pa.types.is_integer(t):
+        return int(mn), int(mx)
+    if pa.types.is_date(t):
+        import datetime
+        epoch = datetime.date(1970, 1, 1)
+        return (mn - epoch).days, (mx - epoch).days
+    if pa.types.is_decimal(t) and dec_as_int:
+        return int(mn.scaleb(t.scale)), int(mx.scaleb(t.scale))
+    return None     # float/bool/str: lane is dtype-determined
+
+
+def table_column_stats(table: pa.Table, dec_as_int: bool = False) -> dict:
+    """{column: (lo, hi)} for the lane-relevant columns of an in-memory
+    arrow table (one vectorized min_max pass per column)."""
+    out: dict = {}
+    for name in table.column_names:
+        col = table.column(name)
+        t = col.type
+        if not (pa.types.is_integer(t) or pa.types.is_date(t)
+                or (pa.types.is_decimal(t) and dec_as_int)):
+            continue
+        mm = pc.min_max(col)
+        pair = _stat_pair(t, mm["min"].as_py(), mm["max"].as_py(),
+                          dec_as_int)
+        if pair is not None:
+            out[name] = pair
+    return out
+
+
+def parquet_column_stats(paths, dec_as_int: bool = False) -> dict:
+    """{column: (lo, hi)} aggregated over parquet files from row-group
+    METADATA only (no data read). A column missing statistics in any row
+    group of any file is omitted (unknown range -> widest lane)."""
+    import pyarrow.parquet as pq
+
+    agg: dict = {}
+    bad: set = set()
+    schema = None
+    for path in paths:
+        meta = pq.read_metadata(path)
+        if schema is None:
+            schema = pq.read_schema(path)
+        names = meta.schema.names
+        for rg in range(meta.num_row_groups):
+            group = meta.row_group(rg)
+            if group.num_rows == 0:
+                continue
+            for ci in range(group.num_columns):
+                name = names[ci]
+                if name in bad or name not in schema.names:
+                    continue
+                t = schema.field(name).type
+                if not (pa.types.is_integer(t) or pa.types.is_date(t)
+                        or (pa.types.is_decimal(t) and dec_as_int)):
+                    bad.add(name)
+                    continue
+                st = group.column(ci).statistics
+                pair = None if st is None or not st.has_min_max else \
+                    _stat_pair(t, st.min, st.max, dec_as_int)
+                if pair is None:
+                    bad.add(name)
+                    agg.pop(name, None)
+                    continue
+                old = agg.get(name)
+                agg[name] = pair if old is None else \
+                    (min(old[0], pair[0]), max(old[1], pair[1]))
+    return agg
+
+
+# -- column encoding stats (encoded-execution planning) -----------------------
+# Cardinality (the sorted distinct-value set, capped) and total run count
+# per column, in ENGINE units. device.plan_encodings chooses per-column
+# dictionary/RLE wire encodings from these ONCE per scan group, exactly
+# like plan_lanes does from the (lo, hi) range stats above. The run count
+# is a BOUND for any contiguous morsel window of the same data in the same
+# order, so the static per-morsel run capacity derived from it can never
+# overflow while the stats hold.
+
+#: distinct values above this are not collected (no dictionary encoding)
+ENC_MAX_CARD = 1 << 16
+
+
+def column_enc_stat(col, dec_as_int: bool = False,
+                    max_card: int = ENC_MAX_CARD):
+    """{"distinct": sorted int array or None, "runs": int, "rows": n} for
+    one arrow column (int/date/decimal only; None otherwise). `distinct`
+    covers VALID values (null slots ride canonical code 0); `runs` counts
+    over null-filled-with-zero values — the exact canonicalization
+    pack-time RLE runs over."""
+    arr = _chunked_to_array(col)
+    t = arr.type
+    if not (pa.types.is_integer(t) or pa.types.is_date(t)
+            or (pa.types.is_decimal(t) and dec_as_int)):
+        return None
+    c = from_arrow_column(arr, dec_as_int)   # engine units, nulls -> 0
+    return column_enc_stat_values(np.asarray(c.data), c.validity, max_card)
+
+
+def column_enc_stat_values(data: np.ndarray, valid: np.ndarray,
+                           max_card: int = ENC_MAX_CARD) -> dict:
+    """Encoding stats over an already-engine-unit value array."""
+    filled = np.where(valid, data, np.zeros((), dtype=data.dtype))
+    n = int(len(filled))
+    runs = int(np.count_nonzero(filled[1:] != filled[:-1]) + 1) if n else 0
+    distinct = None
+    u = np.unique(data[valid])
+    if len(u) <= max_card:
+        distinct = u.astype(np.int64)
+    return {"distinct": distinct, "runs": runs, "rows": n}
+
+
+def merge_enc_stats(parts: list) -> "dict | None":
+    """Combine per-source encoding stats (per warehouse file, per chunk):
+    distinct = the union (None when any part lacks it), runs = the sum —
+    a window spanning source boundaries holds at most the per-source run
+    totals combined, under ANY source order."""
+    if not parts or any(p is None for p in parts):
+        return None
+    distinct = None
+    if all(p.get("distinct") is not None for p in parts):
+        distinct = np.unique(np.concatenate(
+            [np.asarray(p["distinct"], dtype=np.int64) for p in parts]))
+        if len(distinct) > ENC_MAX_CARD:
+            distinct = None
+    return {"distinct": distinct,
+            "runs": sum(int(p["runs"]) for p in parts),
+            "rows": sum(int(p.get("rows", 0)) for p in parts)}
+
+
+# -- parquet dictionary pass-through (staging-thread hot loop) ----------------
+
+def parquet_dictionary_columns(paths) -> list[str]:
+    """String columns dictionary-encoded in EVERY column chunk of every
+    row group of the given parquet files (metadata only, no data read).
+    Reading these with ParquetReadOptions(dictionary_columns=...) hands
+    the staging thread codes + dictionary directly — from_arrow_column
+    then skips its dictionary_encode() re-encoding pass, the hot loop of
+    double-buffered morsel staging."""
+    import pyarrow.parquet as pq
+
+    cand = None
+    for path in paths:
+        try:
+            meta = pq.read_metadata(path)
+            schema = pq.read_schema(path)
+        except Exception:
+            return []
+        strs = {f.name for f in schema
+                if pa.types.is_string(f.type)
+                or pa.types.is_large_string(f.type)}
+        cand = strs if cand is None else (cand & strs)
+        names = meta.schema.names
+        for rg in range(meta.num_row_groups):
+            group = meta.row_group(rg)
+            for ci in range(group.num_columns):
+                name = names[ci]
+                if name not in cand:
+                    continue
+                encs = set(group.column(ci).encodings)
+                if not (encs & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"}):
+                    cand.discard(name)
+    return sorted(cand or ())
+
+
+def parquet_dataset_format(paths):
+    """A pyarrow dataset format that reads the (fully) dictionary-encoded
+    string columns of `paths` as dictionary arrays — zero-copy code
+    pass-through for the staging thread. None when nothing qualifies or
+    the pyarrow version lacks the option."""
+    import pyarrow.dataset as pa_dataset
+
+    cols = parquet_dictionary_columns(paths)
+    if not cols:
+        return None
+    try:
+        return pa_dataset.ParquetFileFormat(
+            read_options=pa_dataset.ParquetReadOptions(
+                dictionary_columns=cols))
+    except Exception:
+        return None
+
+
+def _dedupe(names: list[str]) -> list[str]:
+    seen: dict[str, int] = {}
+    out = []
+    for n in names:
+        if n in seen:
+            seen[n] += 1
+            out.append(f"{n}_{seen[n]}")
+        else:
+            seen[n] = 0
+            out.append(n)
+    return out

@@ -1,0 +1,521 @@
+"""Bound-expression evaluation on device columns.
+
+Counterpart of ``nds_tpu/engine/jax_backend/jexprs.py``: the Spark-SQL null
+semantics of the numpy oracle (engine/exprs.py) as torch compute. String
+work never touches the device: predicates, substrings and parses are
+computed once over the host dictionary and become lookup tables that the
+device gathers at the row codes.
+
+Raises NotImplementedError for host-only cases (string concatenation,
+parameter slots); the executor falls back to the numpy backend for that
+plan node.
+"""
+from __future__ import annotations
+
+import decimal
+import re
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..column import dec_scale, is_dec
+from ..exprs import _scaled_in_values, _sql_str
+from ..plan import BCall, BCol, BExpr, BLit, BScalarSubquery
+from .device import DCol, DTable, lut_gather, phys_dtype, string_rank_lut
+
+SubqueryEval = Callable[[object], object]
+
+_F64 = torch.float64
+
+
+def evaluate(expr: BExpr, table: DTable,
+             subquery_eval: Optional[SubqueryEval] = None) -> DCol:
+    n = int(table.alive.shape[0])
+    dev = table.alive.device
+    if isinstance(expr, BCol):
+        return table.cols[expr.index]
+    if isinstance(expr, BLit):
+        return constant(expr.dtype, expr.value, n, dev)
+    if isinstance(expr, BScalarSubquery):
+        if subquery_eval is None:
+            raise RuntimeError("scalar subquery encountered without evaluator")
+        value, _ = subquery_eval(expr.plan)
+        return constant(expr.dtype, value, n, dev)
+    if isinstance(expr, BCall):
+        handler = _HANDLERS.get(expr.op)
+        if handler is None:
+            raise NotImplementedError(f"device expression op {expr.op!r}")
+        return handler(expr, table, subquery_eval)
+    raise NotImplementedError(f"device expression {type(expr).__name__}")
+
+
+def constant(dtype: str, value, n: int, device) -> DCol:
+    """Broadcast a host scalar to a column (None => all NULL)."""
+    pd = phys_dtype(dtype)
+    if value is None:
+        return DCol(dtype, torch.zeros(n, dtype=pd, device=device),
+                    torch.zeros(n, dtype=torch.bool, device=device))
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    if dtype == "str":
+        return DCol("str", torch.zeros(n, dtype=torch.int32, device=device),
+                    ones, np.asarray([value], dtype=object))
+    if dtype == "bool":
+        value = bool(value)
+    return DCol(dtype, torch.full((n,), value, dtype=pd, device=device), ones)
+
+
+def _args(expr: BCall, table: DTable, sq) -> list[DCol]:
+    return [evaluate(a, table, sq) for a in expr.args]
+
+
+def _to_float(c: DCol) -> torch.Tensor:
+    """Numeric column as float64 (decN descales: scaled int -> value)."""
+    out = c.data.to(_F64)
+    if is_dec(c.dtype):
+        out = out / 10.0 ** dec_scale(c.dtype)
+    return out
+
+
+def _promote(a: torch.Tensor, b: torch.Tensor):
+    if a.dtype != b.dtype:
+        ct = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(ct), b.to(ct)
+    return a, b
+
+
+# -- string dictionary helpers (host side) -----------------------------------
+
+def _dict(c: DCol) -> np.ndarray:
+    return c.dictionary if c.dictionary is not None \
+        else np.empty(0, dtype=object)
+
+
+def _merge_dicts(*dicts: np.ndarray) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Common dictionary + per-input code remap LUTs (host)."""
+    seen: dict[str, int] = {}
+    luts = []
+    for d in dicts:
+        lut = np.empty(len(d), dtype=np.int32)
+        for i, v in enumerate(d):
+            if v not in seen:
+                seen[v] = len(seen)
+            lut[i] = seen[v]
+        luts.append(lut)
+    merged = np.empty(len(seen), dtype=object)
+    for v, i in seen.items():
+        merged[i] = v
+    return merged, luts
+
+
+def string_pair_keys(a: DCol, b: DCol):
+    """Comparable int keys for two string columns (merged lexicographic
+    rank)."""
+    merged, (la, lb) = _merge_dicts(_dict(a), _dict(b))
+    ranks = string_rank_lut(merged)
+    ka = lut_gather(lut_gather(a.data, la), ranks)
+    kb = lut_gather(lut_gather(b.data, lb), ranks)
+    return ka, kb
+
+
+def merge_branch_strings(cols: list[DCol]):
+    """Recode string columns into one shared dictionary (device codes)."""
+    merged, luts = _merge_dicts(*[_dict(c) for c in cols])
+    datas = [lut_gather(c.data, lut) if len(lut)
+             else torch.zeros(len(c), dtype=torch.int32, device=c.data.device)
+             for c, lut in zip(cols, luts)]
+    return merged, datas
+
+
+def _dict_map(a: DCol, values: np.ndarray) -> DCol:
+    """A string column whose dictionary entries map to `values` (host
+    strings): re-dictionary and re-gather the codes."""
+    if len(values) == 0:
+        return DCol("str", a.data, a.valid, np.empty(0, dtype=object))
+    uniq, remap = np.unique(values.astype(str), return_inverse=True)
+    codes = lut_gather(a.data, remap.astype(np.int32))
+    return DCol("str", codes, a.valid, uniq.astype(object))
+
+
+# -- arithmetic --------------------------------------------------------------
+
+def _arith(op: str):
+    def run(expr: BCall, table: DTable, sq) -> DCol:
+        a, b = _args(expr, table, sq)
+        valid = a.valid & b.valid
+        if op == "div":
+            da, db = _to_float(a), _to_float(b)
+            zero = db == 0
+            out = da / torch.where(zero, 1.0, db)
+            return DCol("float", torch.where(valid & ~zero, out, 0.0),
+                        valid & ~zero)
+        fns = {"add": torch.add, "sub": torch.sub, "mul": torch.mul,
+               "mod": torch.fmod}
+        if a.dtype == "float" or b.dtype == "float" or expr.dtype == "float":
+            out = fns[op](_to_float(a), _to_float(b))
+            return DCol("float", torch.where(valid, out, 0.0), valid)
+        pd = phys_dtype("int")
+        da, db = a.data.to(pd), b.data.to(pd)
+        if op == "mod":
+            # the reference's integer remainder by zero yields 0
+            zero = db == 0
+            out = torch.where(zero, 0, torch.fmod(
+                da, torch.where(zero, torch.ones_like(db), db)))
+        else:
+            out = fns[op](da, db)
+        if is_dec(expr.dtype):
+            # scale-aligned (add/sub) or raw scaled-int product (mul)
+            return DCol(expr.dtype, torch.where(valid, out, 0), valid)
+        dtype = expr.dtype if expr.dtype in ("int", "date") else "int"
+        out = out.to(phys_dtype(dtype))
+        return DCol(dtype, torch.where(valid, out, 0), valid)
+    return run
+
+
+def _neg(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    return DCol(a.dtype, -a.data, a.valid)
+
+
+def _ratdiv(which: str):
+    """Exact rational order key for num/den: "hi" = floor(p/q), "lo" = 56
+    binary fraction digits, both by exact integer division. Decimal scales
+    fold into p and q so the value is the true rational. Invalid where an
+    input is null or den == 0, like the float `div`."""
+    def run(expr: BCall, table: DTable, sq) -> DCol:
+        a, b = _args(expr, table, sq)
+        pd = phys_dtype("int")
+        sa = dec_scale(a.dtype) if is_dec(a.dtype) else 0
+        sb = dec_scale(b.dtype) if is_dec(b.dtype) else 0
+        p = a.data.to(pd) * (10 ** sb)
+        q = b.data.to(pd) * (10 ** sa)
+        neg = q < 0
+        p = torch.where(neg, -p, p)
+        q = torch.where(neg, -q, q)
+        valid = a.valid & b.valid & (q != 0)
+        qs = torch.where(q == 0, torch.ones_like(q), q)
+        hi = torch.div(p, qs, rounding_mode="floor")
+        if which == "hi":
+            return DCol("int", torch.where(valid, hi, 0), valid)
+        r = p - hi * qs                       # in [0, q)
+        lo = torch.zeros_like(r)
+        for _ in range(8):
+            r = r << 7
+            d = torch.div(r, qs, rounding_mode="floor")
+            r = r - d * qs
+            lo = (lo << 7) | d
+        return DCol("int", torch.where(valid, lo, 0), valid)
+    return run
+
+
+# -- comparisons -------------------------------------------------------------
+
+_CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
+        "gt": torch.gt, "ge": torch.ge}
+
+
+def _compare(op: str):
+    def run(expr: BCall, table: DTable, sq) -> DCol:
+        a, b = _args(expr, table, sq)
+        valid = a.valid & b.valid
+        if a.dtype == "str" or b.dtype == "str":
+            ka, kb = string_pair_keys(a, b)
+        else:
+            ka, kb = _promote(a.data, b.data)
+        out = _CMP[op](ka, kb)
+        return DCol("bool", out & valid, valid)
+    return run
+
+
+# -- boolean -----------------------------------------------------------------
+
+def _and(expr: BCall, table: DTable, sq) -> DCol:
+    a, b = _args(expr, table, sq)
+    da, db = a.data.to(torch.bool), b.data.to(torch.bool)
+    out = (da & a.valid) & (db & b.valid)
+    return DCol("bool", out, out | (~da & a.valid) | (~db & b.valid))
+
+
+def _or(expr: BCall, table: DTable, sq) -> DCol:
+    a, b = _args(expr, table, sq)
+    da, db = a.data.to(torch.bool), b.data.to(torch.bool)
+    out = (da & a.valid) | (db & b.valid)
+    return DCol("bool", out, out | ((~da & a.valid) & (~db & b.valid)))
+
+
+def _not(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    return DCol("bool", ~a.data.to(torch.bool) & a.valid, a.valid)
+
+
+def _isnull(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    return DCol("bool", ~a.valid, torch.ones_like(a.valid))
+
+
+def _isnotnull(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    return DCol("bool", a.valid.clone(), torch.ones_like(a.valid))
+
+
+# -- predicates --------------------------------------------------------------
+
+def _in_list(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    values = expr.extra
+    has_null = any(v is None for v in values)
+    dev = a.data.device
+    if a.dtype == "str":
+        d = _dict(a)
+        vset = {v for v in values if v is not None}
+        hit = np.asarray([v in vset for v in d], dtype=bool)
+        out = lut_gather(a.data, hit) if len(d) else \
+            torch.zeros(len(a), dtype=torch.bool, device=dev)
+    else:
+        if is_dec(a.dtype):
+            vals = _scaled_in_values(values, dec_scale(a.dtype))
+            arr = torch.tensor(vals, dtype=phys_dtype(a.dtype), device=dev)
+        else:
+            vals = [v for v in values if v is not None]
+            dt = torch.float64 if any(isinstance(v, float) for v in vals) \
+                else torch.int64
+            arr = torch.tensor(vals, dtype=dt, device=dev) if vals else None
+        if not vals:
+            out = torch.zeros(len(a), dtype=torch.bool, device=dev)
+        else:
+            da, arr = _promote(a.data, arr)
+            out = torch.isin(da, arr)
+    valid = a.valid
+    if has_null:
+        valid = valid & out
+    return DCol("bool", out & valid, valid)
+
+
+def _like_to_regex(pattern: str) -> re.Pattern:
+    out = []
+    for ch in pattern:
+        out.append(".*" if ch == "%" else "." if ch == "_" else re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.DOTALL)
+
+
+def _like(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    if a.dtype != "str":
+        raise NotImplementedError("LIKE on non-string column")
+    pattern = _like_to_regex(str(expr.extra))
+    d = _dict(a)
+    hit = np.asarray([bool(pattern.match(v)) for v in d], dtype=bool)
+    out = lut_gather(a.data, hit) if len(d) else \
+        torch.zeros(len(a), dtype=torch.bool, device=a.data.device)
+    return DCol("bool", out & a.valid, a.valid)
+
+
+# -- conditional -------------------------------------------------------------
+
+def _case(expr: BCall, table: DTable, sq) -> DCol:
+    pairs = expr.args[:-1]
+    branch_cols = [evaluate(pairs[i + 1], table, sq)
+                   for i in range(0, len(pairs), 2)]
+    branch_cols.append(evaluate(expr.args[-1], table, sq))
+    dictionary = None
+    if expr.dtype == "str":
+        dictionary, datas = merge_branch_strings(branch_cols)
+    else:
+        pd = phys_dtype(expr.dtype)
+        datas = [c.data.to(pd) for c in branch_cols]
+    out = datas[-1]
+    valid = branch_cols[-1].valid
+    # fold branches in reverse so earlier WHENs win
+    for i in range(len(pairs) - 2, -1, -2):
+        cond = evaluate(pairs[i], table, sq)
+        fire = cond.data.to(torch.bool) & cond.valid
+        bi = i // 2
+        out = torch.where(fire, datas[bi], out)
+        valid = torch.where(fire, branch_cols[bi].valid, valid)
+    return DCol(expr.dtype, out, valid, dictionary)
+
+
+def _coalesce(expr: BCall, table: DTable, sq) -> DCol:
+    cols = _args(expr, table, sq)
+    dictionary = None
+    if expr.dtype == "str":
+        dictionary, datas = merge_branch_strings(cols)
+    else:
+        pd = phys_dtype(expr.dtype)
+        datas = [c.data.to(pd) for c in cols]
+    out = datas[-1]
+    valid = cols[-1].valid
+    for i in range(len(cols) - 2, -1, -1):
+        out = torch.where(cols[i].valid, datas[i], out)
+        valid = cols[i].valid | valid
+    return DCol(expr.dtype, out, valid, dictionary)
+
+
+def _nullif(expr: BCall, table: DTable, sq) -> DCol:
+    a, b = _args(expr, table, sq)
+    if a.dtype == "str" or b.dtype == "str":
+        ka, kb = string_pair_keys(a, b)
+    else:
+        ka, kb = _promote(a.data, b.data)
+    same = (ka == kb) & a.valid & b.valid
+    return DCol(a.dtype, a.data, a.valid & ~same, a.dictionary)
+
+
+# -- casts & scalar functions ------------------------------------------------
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x)
+
+
+def _halfup_rescale(data: torch.Tensor, from_scale: int,
+                    to_scale: int) -> torch.Tensor:
+    if to_scale >= from_scale:
+        return data * 10 ** (to_scale - from_scale)
+    factor = 10 ** (from_scale - to_scale)
+    return _sign(data) * torch.div(torch.abs(data) + factor // 2, factor,
+                                   rounding_mode="floor")
+
+
+def _cast(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    target = expr.dtype
+    if target == a.dtype:
+        return a
+    if a.dtype == "str":
+        return _cast_from_str(a, target)
+    if target == "str":
+        return _cast_to_str(a)
+    if is_dec(target):
+        s = dec_scale(target)
+        if is_dec(a.dtype):
+            out = _halfup_rescale(a.data, dec_scale(a.dtype), s)
+        elif a.dtype == "float":
+            d = a.data.to(_F64) * 10.0 ** s
+            out = (torch.floor(torch.abs(d) + 0.5) * _sign(d)) \
+                .to(phys_dtype(target))
+        else:   # int/bool
+            out = a.data.to(phys_dtype(target)) * 10 ** s
+        return DCol(target, out, a.valid)
+    if is_dec(a.dtype):
+        s = dec_scale(a.dtype)
+        if target == "float":
+            return DCol("float", a.data.to(_F64) / 10.0 ** s, a.valid)
+        if target == "int":   # truncate toward zero (Spark decimal -> int)
+            out = _sign(a.data) * torch.div(torch.abs(a.data), 10 ** s,
+                                            rounding_mode="floor")
+            return DCol("int", out.to(phys_dtype("int")), a.valid)
+        raise NotImplementedError(f"cast {a.dtype} -> {target}")
+    if target in ("int", "float", "date"):
+        return DCol(target, a.data.to(phys_dtype(target)), a.valid)
+    raise NotImplementedError(f"cast to {target}")
+
+
+def _cast_to_str(a: DCol) -> DCol:
+    """Numeric/date -> string: dictionary-encode the distinct values on the
+    host."""
+    data = a.data.cpu().numpy()
+    uniq_raw, inverse = np.unique(data, return_inverse=True)
+    if a.dtype == "date":
+        strs = [str(np.datetime64(int(v), "D").item()) for v in uniq_raw]
+    elif is_dec(a.dtype):
+        strs = [_sql_str(decimal.Decimal(int(v)).scaleb(-dec_scale(a.dtype)))
+                for v in uniq_raw]
+    else:
+        strs = [_sql_str(v) for v in uniq_raw]
+    uniq, remap = np.unique(np.asarray(strs, dtype=object).astype(str),
+                            return_inverse=True)
+    codes = remap.astype(np.int32)[inverse]
+    return DCol("str", torch.from_numpy(codes).to(a.data.device), a.valid,
+                uniq.astype(object))
+
+
+def _cast_from_str(a: DCol, target: str) -> DCol:
+    """Parse the dictionary on the host; codes gather the parsed values."""
+    d = _dict(a)
+    vals = np.zeros(max(len(d), 1),
+                    dtype=np.int64 if is_dec(target) else
+                    {"int": np.int64, "float": np.float64,
+                     "date": np.int32}[target])
+    ok = np.zeros(max(len(d), 1), dtype=bool)
+    for i, v in enumerate(d):
+        try:
+            if target == "date":
+                vals[i] = np.datetime64(v, "D").astype(np.int32)
+            elif target == "int":
+                vals[i] = int(float(v))
+            elif is_dec(target):
+                vals[i] = int(decimal.Decimal(v).scaleb(dec_scale(target))
+                              .to_integral_value(decimal.ROUND_HALF_UP))
+            else:
+                vals[i] = float(v)
+            ok[i] = True
+        except (ValueError, TypeError, decimal.InvalidOperation):
+            pass
+    out = lut_gather(a.data, vals).to(phys_dtype(target))
+    valid = a.valid & lut_gather(a.data, ok)
+    return DCol(target, torch.where(valid, out, torch.zeros_like(out)), valid)
+
+
+def _substr(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    start, length = expr.extra
+    lo = start - 1 if start > 0 else 0
+    hi = None if length is None else lo + length
+    newd = np.asarray([v[lo:hi] for v in _dict(a).astype(str)], dtype=object)
+    return _dict_map(a, newd)
+
+
+def _case_map(fn):
+    """Row-wise string transform as a dictionary transform."""
+    def run(expr: BCall, table: DTable, sq) -> DCol:
+        a = evaluate(expr.args[0], table, sq)
+        if a.dtype != "str":
+            raise NotImplementedError("string transform on non-string")
+        newd = np.asarray([fn(v) for v in _dict(a).astype(str)],
+                          dtype=object)
+        return _dict_map(a, newd)
+    return run
+
+
+def _abs(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    return DCol(a.dtype, torch.abs(a.data), a.valid)
+
+
+def _round(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    digits = expr.extra if expr.extra is not None else 0
+    if is_dec(a.dtype) and is_dec(expr.dtype):
+        # negative digits: round to tens/hundreds, then restore the scale
+        out = _halfup_rescale(a.data, dec_scale(a.dtype), int(digits))
+        out = out * 10 ** (dec_scale(expr.dtype) - int(digits))
+        return DCol(expr.dtype, out, a.valid)
+    data = _to_float(a)
+    scale = 10.0 ** digits
+    out = torch.floor(torch.abs(data) * scale + 0.5) / scale * _sign(data)
+    if expr.dtype == "int":
+        return DCol("int", out.to(phys_dtype("int")), a.valid)
+    return DCol("float", out, a.valid)
+
+
+def _grouping_bit(expr: BCall, table: DTable, sq) -> DCol:
+    a = evaluate(expr.args[0], table, sq)
+    bit = int(expr.extra)
+    out = (a.data.to(phys_dtype("int")) >> bit) & 1
+    return DCol("int", out, a.valid)
+
+
+_HANDLERS = {
+    "add": _arith("add"), "sub": _arith("sub"), "mul": _arith("mul"),
+    "div": _arith("div"), "mod": _arith("mod"), "neg": _neg,
+    "ratdiv_hi": _ratdiv("hi"), "ratdiv_lo": _ratdiv("lo"),
+    "eq": _compare("eq"), "ne": _compare("ne"), "lt": _compare("lt"),
+    "le": _compare("le"), "gt": _compare("gt"), "ge": _compare("ge"),
+    "and": _and, "or": _or, "not": _not,
+    "isnull": _isnull, "isnotnull": _isnotnull,
+    "in_list": _in_list, "like": _like,
+    "case": _case, "coalesce": _coalesce, "cast": _cast,
+    "substr": _substr, "abs": _abs, "round": _round,
+    "upper": _case_map(str.upper), "lower": _case_map(str.lower),
+    "nullif": _nullif, "grouping_bit": _grouping_bit,
+}
