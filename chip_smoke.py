@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nds_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--sf 10] [--profile]
+    python3 chip_smoke.py [--sf 10] [--profile] [--parent TREE]
 
 Phases, one JSON line each:
 
@@ -15,10 +15,14 @@ Phases, one JSON line each:
    against the port's numpy executor on the same session.
    The launch counters are zeroed just before and read just after, and
    every kernel must have launched;
-4. kernels: each kernel on the largest inputs the query phase gave it,
-   and on edge cases, held bit-identical against its plain PyTorch
-   version on the card, and timed beside the plain version, one PyTorch
-   library call and the least time the card's memory rate allows.
+4. kernels: each kernel on the largest inputs the query phase gave it in
+   each regime (the sort with an int32 and an int64 key, the segment
+   reduction as a global aggregate and grouped), and on edge cases, held
+   bit-identical against its plain PyTorch version on the card, and timed
+   beside the plain version, one PyTorch library call and the least time
+   the card's memory rate allows, each on the device alone (``ms``) and
+   with the host's enqueueing (``host_ms``). ``--parent TREE`` (repeatable)
+   also times the kernels of other checkouts on the same inputs, in turns.
 
 Then the kernel table as one JSON line and, last, the device line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
@@ -34,12 +38,16 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 REPLACES = {
     "sort_pairs": "nds_tpu/engine/jax_backend/pallas_kernels.py:278",
     "seg_reduce_multi": "nds_tpu/engine/jax_backend/pallas_kernels.py:382",
     "take_many": "nds_tpu/engine/jax_backend/pallas_kernels.py:461",
 }
+#: the kernels redesigned for the card after their first port: their
+#: edge cases are timed too, and their launches broken down by kernel
+REDESIGNED = ("sort_pairs", "seg_reduce_multi")
 QUERIES = (3, 7, 9, 42, 55, 96)
 SEED = 3
 #: the card the bounds are computed for, and its memory rate (NVIDIA data
@@ -58,30 +66,68 @@ def emit(phase: str, **fields) -> None:
 
 class Recorder:
     """Wraps each kernel wrapper of cuda_kernels and keeps (a copy of) the
-    inputs of its largest call; the wrapper itself runs unchanged."""
+    inputs of its largest call in each regime, and the frames of the port
+    that made it; the wrapper itself runs unchanged. A sort's regime is its
+    key type; a segment reduction's is decided after the run (``regimes``),
+    since telling a global aggregate from a grouped one reads the gids
+    back."""
 
     def __init__(self, ck):
         self.ck = ck
         self.largest: dict = {}
         self.calls: dict = {}
         self.orig: dict = {}
-        for name, size in (("sort_pairs", lambda k, i: int(k.shape[0])),
-                           ("seg_reduce_multi",
-                            lambda ops, g, s: int(g.shape[0]) * len(ops)),
-                           ("take_many",
-                            lambda srcs, i: int(i.shape[0]) * len(srcs))):
-            self._wrap(name, size)
+        for name, size, regime in (
+                ("sort_pairs",
+                 lambda k, i: int(k.shape[0]) * (k.element_size() + 4),
+                 lambda k, i: f"{str(k.dtype)[6:]} key"),
+                ("seg_reduce_multi",
+                 lambda ops, g, s: int(g.shape[0]) * len(ops),
+                 lambda ops, g, s: (s, int(g.shape[0]), len(ops))),
+                ("take_many", lambda srcs, i: int(i.shape[0]) * len(srcs),
+                 lambda srcs, i: "gather")):
+            self._wrap(name, size, regime)
 
-    def _wrap(self, name, size):
+    def _wrap(self, name, size, regime):
         orig = self.orig[name] = getattr(self.ck, name)
 
         def wrapped(*args, **kwargs):
             n = size(*args)
+            key = (name, regime(*args))
             self.calls[name] = self.calls.get(name, 0) + 1
-            if n > self.largest.get(name, (-1, None))[0]:
-                self.largest[name] = (n, _clone(args), kwargs)
+            if n > self.largest.get(key, (-1,))[0]:
+                self.largest[key] = (n, _clone(args), kwargs, _callers())
             return orig(*args, **kwargs)
         setattr(self.ck, name, wrapped)
+
+    def regimes(self) -> dict:
+        """{kernel: [(regime, args, kwargs, callers), ...]}, the largest call
+        of each regime, largest first. A segment reduction is a global
+        aggregate when its live rows (gid in [0, S)) all hold one gid."""
+        best: dict = {}
+        for (name, reg), (n, args, kwargs, callers) in self.largest.items():
+            if name == "seg_reduce_multi":
+                _, gid, S = args
+                live = gid[(gid >= 0) & (gid < S)]
+                one = live.numel() == 0 or bool((live == live[0]).all())
+                reg = "global aggregate" if one else "grouped"
+            if n > best.get((name, reg), (-1,))[0]:
+                best[name, reg] = (n, args, kwargs, callers)
+        out: dict = {}
+        for (name, reg), (n, *call) in sorted(
+                best.items(), key=lambda kv: -kv[1][0]):
+            out.setdefault(name, []).append((reg, *call))
+        return out
+
+
+def _callers(depth: int = 3) -> str:
+    """The innermost frames that led to the wrapped kernel call, as
+    'file:line function < ...' (the recorder's own frame left out)."""
+    frames = traceback.StackSummary.extract(
+        traceback.walk_stack(sys._getframe(2)), limit=depth,
+        lookup_lines=False)
+    return " < ".join(f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                      for f in frames)
 
 
 def _clone(x):
@@ -97,21 +143,34 @@ def _clone(x):
 # timing and comparison
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, reps: int = 5, warm: int = 2) -> float:
-    """Median device time of one call, by CUDA events."""
+#: GPU clock cycles of the sleep that each timed call is enqueued behind
+SLEEP_CYCLES = 5_000_000
+
+
+def time_ms(fn, reps: int = 5, warm: int = 2) -> tuple[float, float]:
+    """Median time of one call by CUDA events, two ways: (device, host).
+    device: each call is enqueued while the device sleeps, so the events
+    time its work on the device and not the host's enqueueing (a call that
+    waits on the device itself, as the plain segment reduction does for
+    NaNs, still counts its host time). host: the events bracket the call
+    on an idle device, so where enqueueing outlasts the device's work the
+    host's time counts, as a query's eager executor feels it."""
     import torch
     for _ in range(warm):
         fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    times: dict = {True: [], False: []}
+    for sleep in (True, False):
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if sleep:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times[sleep].append(a.elapsed_time(b))
+    return statistics.median(times[True]), statistics.median(times[False])
 
 
 def same_bits(got, want) -> tuple[bool, float]:
@@ -206,6 +265,28 @@ def phase_queries(session, ck) -> dict:
     return totals
 
 
+def dev_us(e) -> float:
+    """A profiler entry's own device time, microseconds."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
+def device_parts(fn) -> list:
+    """[[kernel, device ms, launches], ...] of one call under
+    torch.profiler: how a wrapper's launches share its time."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [[(re.findall(r"(\w+)[<(]", e.key) or [e.key])[0],
+             dev_us(e) / 1e3, e.count]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
 def phase_profile(session) -> None:
     """One more warm run of each query under torch.profiler (device time
     by kernel, the device's busy share of the wall) and one under
@@ -218,9 +299,6 @@ def phase_profile(session) -> None:
     from torch.profiler import ProfilerActivity, profile
     from nds_tpu_torch import streams
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
     for q in QUERIES:
         sql = streams.instantiate(q, stream=0, rngseed=SEED)
         with profile(activities=[ProfilerActivity.CPU,
@@ -249,12 +327,38 @@ def phase_profile(session) -> None:
              host_cumulative_s=[[name, round(t, 4)] for t, name in host])
 
 
+def _test_inputs():
+    """tests/torch_inputs.py, the input makers the tests share, loaded by
+    its path (a package named ``tests`` elsewhere on sys.path may shadow
+    this repository's)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_inputs.py")
+    spec = importlib.util.spec_from_file_location("torch_inputs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: the sort's tile (csrc/sort_pairs.cu kTile)
+SORT_TILE = 4096
+
+
 def _edge_cases(torch, dev):
     """Inputs beyond what the queries gave: ties, sentinels, non-power-of-
-    two lengths, int32 keys, non-iota and iota idx; out-of-range gids, S = 1 and
-    2048, narrow ints, float min/max with NaN and signed zeros; bool and
-    float gathers with clamped and wrapped indices."""
+    two lengths, int32 keys, non-iota and iota idx; the sort's range remap
+    at 0, 1, 4 and 8 key passes (keys all equal, only sentinels, 0/1, the
+    high byte only, TYPE_MIN .. TYPE_MAX - 1 with sentinels), its tile -1,
+    +0, +1 and about 10M pairs (thousands of tiles for the look-back);
+    out-of-range gids, S = 1 and 2048, narrow ints, float min/max with NaN
+    and signed zeros, every live row in segment 0 of S = 8 (with 2 int64
+    sums and with 16 operands), alternating, sorted, random and all-dead
+    gids, and the query path's grouped shape (4096 rows of 2 sums over
+    S = 1024); bool and float gathers with clamped and wrapped indices."""
+    import numpy as np
+    sort_keys = _test_inputs().sort_keys
     g = torch.Generator(device="cpu").manual_seed(7)
+    rng = np.random.default_rng(7)
 
     def ri(lo, hi, n, dt):
         return torch.randint(lo, hi, (n,), generator=g).to(dt).to(dev)
@@ -267,9 +371,9 @@ def _edge_cases(torch, dev):
         cases.append(("sort_pairs", (key, idx), {}))
         iota = torch.arange(n, dtype=torch.int32, device=dev)
         cases.append(("sort_pairs", (key, iota), {"idx_ascending": True}))
-    n = 50001
-    for S in (1, 37, 2048):
-        gid = ri(-3, S + 3, n, torch.int32)
+    def operands(n):
+        """16 operands: the sum, min and max of every integer width, and
+        float min/max with NaN and signed zeros."""
         ops = [(ri(-100, 100, n, dt), op)
                for dt in (torch.int8, torch.int16, torch.int32, torch.int64)
                for op in ("sum", "min", "max")]
@@ -277,9 +381,45 @@ def _edge_cases(torch, dev):
         x[::97] = float("nan")
         x[1::89] = 0.0
         x[2::89] = -0.0
-        ops += [(x, "min"), (x, "max"), (x.float(), "min"),
-                (x.float(), "max")]
-        cases.append(("seg_reduce_multi", (ops, gid, S), {}))
+        return ops + [(x, "min"), (x, "max"), (x.float(), "min"),
+                      (x.float(), "max")]
+    n = 50001
+    for S in (1, 37, 2048):
+        gid = ri(-3, S + 3, n, torch.int32)
+        cases.append(("seg_reduce_multi", (operands(n), gid, S), {}))
+    n = 4096
+    cases.append(("seg_reduce_multi", (
+        [(ri(-10 ** 12, 10 ** 12, n, torch.int64), "sum") for _ in range(2)],
+        ri(0, 1024, n, torch.int32), 1024), {}))
+    for n, dt, kind, ascending in (
+            (SORT_TILE - 1, np.int64, "equal", True),
+            (SORT_TILE, np.int32, "sentinels", False),
+            (SORT_TILE + 1, np.int32, "01", True),
+            (100_003, np.int64, "highbyte", False),
+            (100_003, np.int64, "fullrange", True),
+            (10_000_019, np.int64, "fullrange", False),
+            (10_000_019, np.int32, "01", True)):
+        key = torch.from_numpy(sort_keys(kind, n, dt, rng)).to(dev)
+        idx = torch.arange(n, dtype=torch.int32) if ascending else \
+            torch.from_numpy(rng.permutation(n).astype(np.int32))
+        cases.append(("sort_pairs", (key, idx.to(dev)),
+                      {"idx_ascending": ascending}))
+    n = 6_291_459
+    live0 = torch.where(torch.rand(n, generator=g) < 1 / 3, n, 0) \
+        .to(torch.int32).to(dev)
+    sums = [(ri(-10 ** 12, 10 ** 12, n, torch.int64), "sum")
+            for _ in range(2)]
+    cases.append(("seg_reduce_multi", (sums, live0, 8), {}))
+    n = 1_000_003
+    big = operands(n)
+    for S, gid in ((8, torch.zeros(n, dtype=torch.int32)),
+                   (8, torch.arange(n, dtype=torch.int32) % 2),
+                   (37, torch.randint(0, 37, (n,), generator=g).sort()[0]),
+                   (8, torch.full((n,), n)),
+                   (8, torch.randint(0, 8, (n,), generator=g)),
+                   (2048, torch.randint(-3, 2051, (n,), generator=g))):
+        cases.append(("seg_reduce_multi",
+                      (big, gid.to(torch.int32).to(dev), S), {}))
     m = 40000
     srcs = [ri(0, 2, m, torch.bool), ri(-128, 127, m, torch.int8),
             ri(-999, 999, m, torch.int16), ri(-999, 999, m, torch.int32),
@@ -354,41 +494,123 @@ def _shape(name, args) -> str:
     return f"n={idx.shape[0]} cols={len(srcs)}"
 
 
-def phase_kernels(ck, recorder, launches, device: str = "cuda") -> list:
+def _times(prefix: str, runs: list) -> dict:
+    """{prefix + "ms": device, prefix + "host_ms": host}, the medians of
+    time_ms pairs."""
+    return {f"{prefix}ms": statistics.median(d for d, _ in runs),
+            f"{prefix}host_ms": statistics.median(h for _, h in runs)}
+
+
+def _timed(kern, parents: dict, args, kwargs) -> dict:
+    """The kernel's times and, with other trees' versions of the kernel
+    given ({tree: function}), theirs in the same call, in turns: each
+    parent, the kernel twice, each parent again in reverse order."""
+    if not parents:
+        return _times("", [time_ms(lambda: kern(*args, **kwargs))])
+    runs: dict = {tree: [] for tree in parents}
+    for tree, fn in parents.items():
+        runs[tree].append(time_ms(lambda: fn(*args, **kwargs)))
+    m = _times("", [time_ms(lambda: kern(*args, **kwargs)) for _ in range(2)])
+    for tree, fn in reversed(parents.items()):
+        runs[tree].append(time_ms(lambda: fn(*args, **kwargs)))
+    for key in ("ms", "host_ms"):
+        m[f"parent_{key}"] = {tree: _times("", r)[key]
+                              for tree, r in runs.items()}
+    return m
+
+
+def _check(ck, recorder, name, args, kwargs) -> tuple:
+    """Runs the kernel and its plain version on the same inputs; raises
+    unless they are bit-identical. Returns (max abs err, the sort's key
+    passes or None)."""
+    import torch
+    passes = None
+    if name == "sort_pairs":
+        *got, passes = ck.sort_pairs_with_passes(*args, **kwargs)
+    else:
+        got = list(recorder.orig[name](*args, **kwargs))
+    want = list(_plain(ck, name)(*args))
+    torch.cuda.synchronize()
+    ok, err = same_bits(got, want)
+    if not ok:
+        raise SystemExit(f"{name} ({_shape(name, args)}) differs from "
+                         f"its plain version (max abs err {err})")
+    return err, passes
+
+
+def _parents(parents: dict, name: str) -> dict:
+    """{tree: that tree's wrapper of kernel `name`}, for the trees that
+    have it."""
+    return {tree: getattr(mod, name) for tree, mod in parents.items()
+            if hasattr(mod, name)}
+
+
+def phase_kernels(ck, recorder, launches, device: str = "cuda",
+                  parents: dict | None = None) -> list:
+    """Each kernel at the largest call of each regime the query phase gave
+    it (the largest of all is the kernel's row), then on the edge cases;
+    every call bit-identical to the plain version. The redesigned kernels
+    are timed on the edge cases too, and beside ``parents``' ({tree:
+    cuda_kernels module of another tree}) when they are given."""
     import torch
     dev = torch.device(device)
+    parents = parents or {}
     rows = []
-    checks = [(n, *recorder.largest[n][1:], True) for n in ck.LAUNCHES] + \
-        [(n, a, kw, False) for n, a, kw in _edge_cases(torch, dev)]
-    for name, args, kwargs, main in checks:
+    for name, regimes in recorder.regimes().items():
         kern = recorder.orig[name]
-        plain = _plain(ck, name)
-        got = kern(*args, **kwargs)
-        want = plain(*args)
-        torch.cuda.synchronize()
-        got = list(got)
-        want = list(want)
-        ok, err = same_bits(got, want)
-        if not ok:
-            raise SystemExit(f"{name} ({_shape(name, args)}) differs from "
-                             f"its plain version (max abs err {err})")
-        if not main:
-            emit("kernel_edge", kernel=name, shape=_shape(name, args),
-                 bit_identical=True)
-            continue
-        ms = time_ms(lambda: kern(*args, **kwargs))
-        plain_ms = time_ms(lambda: plain(*args))
-        library_ms = time_ms(_library(torch, name, args))
-        bound_ms = _bytes(name, args) / MEM_RATE * 1e3
-        row = {"name": name, "route": "cuda",
-               "source": f"nds_tpu_torch/csrc/{ck.SOURCES[name]}",
-               "replaces": REPLACES[name], "launches": launches[name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bound_ms, "bound_by": "bytes",
-               "library_ms": library_ms}
-        emit("kernel", shape=_shape(name, args), bit_identical=True, **row)
-        rows.append(row)
+        for i, (regime, args, kwargs, callers) in enumerate(regimes):
+            err, passes = _check(ck, recorder, name, args, kwargs)
+            m = _timed(kern, _parents(parents, name), args, kwargs)
+            m.update(_times("plain_", [time_ms(
+                lambda: _plain(ck, name)(*args))]))
+            m.update(_times("library_", [time_ms(
+                _library(torch, name, args))]))
+            m["bound_ms"] = _bytes(name, args) / MEM_RATE * 1e3
+            if passes is not None:
+                m["key_passes"] = passes
+            if name in REDESIGNED:
+                m["device_parts"] = device_parts(
+                    lambda: kern(*args, **kwargs))
+            emit("kernel_regime", kernel=name, regime=regime,
+                 shape=_shape(name, args), callers=callers,
+                 bit_identical=True, max_abs_err=err, **m)
+            if i == 0:  # the largest call of all is the kernel's row
+                rows.append({
+                    "name": name, "route": "cuda",
+                    "source": f"nds_tpu_torch/csrc/{ck.SOURCES[name]}",
+                    "replaces": REPLACES[name], "launches": launches[name],
+                    "max_abs_err": err, "ms": m["ms"],
+                    "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+                    "bound_by": "bytes", "library_ms": m["library_ms"],
+                    "host_ms": m["host_ms"],
+                    "plain_host_ms": m["plain_host_ms"],
+                    "library_host_ms": m["library_host_ms"],
+                    "shape": _shape(name, args)})
+            else:
+                rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
+    for name, args, kwargs in _edge_cases(torch, dev):
+        err, passes = _check(ck, recorder, name, args, kwargs)
+        m = {} if name not in REDESIGNED else _timed(
+            recorder.orig[name], _parents(parents, name), args, kwargs)
+        if passes is not None:
+            m["key_passes"] = passes
+        emit("kernel_edge", kernel=name, shape=_shape(name, args),
+             bit_identical=True, **kwargs, **m)
     return rows
+
+
+def load_parent(tree: str, k: int):
+    """The cuda_kernels module of another checkout (its kernels build into
+    that tree's own nds_tpu_torch/_build/), loaded under a name of its
+    own, the k-th."""
+    import importlib.util
+    path = os.path.join(os.path.abspath(tree), "nds_tpu_torch", "engine",
+                        "torch_backend", "cuda_kernels.py")
+    spec = importlib.util.spec_from_file_location(f"parent{k}_cuda_kernels",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def main() -> int:
@@ -396,6 +618,10 @@ def main() -> int:
     ap.add_argument("--sf", type=float, default=10.0)
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm run of each query")
+    ap.add_argument("--parent", metavar="TREE", action="append", default=[],
+                    help="also time the kernels of another checkout (e.g. "
+                    "the parent commit, unpacked by git archive) on the "
+                    "same inputs, in turns with this tree's; repeatable")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -407,6 +633,11 @@ def main() -> int:
 
     t_start = time.perf_counter()
     smi = phase_card_build(ck)
+    parents = {}
+    for k, tree in enumerate(args.parent):
+        parents[tree] = load_parent(tree, k)
+        emit("parent_build", tree=tree, per_source=parents[tree].build(
+            list(REDESIGNED)))
     if torch.cuda.get_device_name(0) != f"NVIDIA {CARD}":
         raise SystemExit(f"the bounds are for the {CARD}, not "
                          f"{torch.cuda.get_device_name(0)}")
@@ -417,10 +648,11 @@ def main() -> int:
         launches = phase_queries(session, ck)
         if args.profile:
             phase_profile(session)
-        emit("largest_inputs", **{k: _shape(k, v[1])
-                                  for k, v in recorder.largest.items()},
-             calls=recorder.calls)
-        rows = phase_kernels(ck, recorder, launches)
+        emit("largest_inputs", calls=recorder.calls, **{
+            k: {reg: f"{_shape(k, a)} from {callers}"
+                for reg, a, _, callers in v}
+            for k, v in recorder.regimes().items()})
+        rows = phase_kernels(ck, recorder, launches, parents=parents)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)

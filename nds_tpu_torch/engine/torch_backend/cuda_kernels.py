@@ -7,10 +7,11 @@ computes what its TPU kernel computes (sources and design notes in
 
 - ``sort_pairs``        (csrc/sort_pairs.cu) least-significant-digit radix
                         sort of (key, idx) pairs by the total order
-                        (key, idx);
+                        (key, idx), over the digits of the keys' range
+                        only, one kernel per pass;
 - ``seg_reduce_multi``  (csrc/seg_reduce.cu) fused per-segment integer SUM
                         and any-dtype MIN/MAX of several operands over one
-                        gid vector;
+                        gid vector, runs folded in registers;
 - ``take_many``         (csrc/take_many.cu) batched multi-column gather with
                         JAX's clamp/wrap index semantics.
 
@@ -19,7 +20,8 @@ tests); for a CUDA tensor it launches its kernel or raises. The kernels are
 built with ``nvcc`` for ``sm_90a`` into ``nds_tpu_torch/_build/`` at first
 use, each into a shared library with a plain C interface loaded through
 ``ctypes``. ``LAUNCHES`` counts the calls into each library's launch entry
-(one ``sort_pairs_launch`` runs all the passes of one sort).
+(one ``sort_pairs_launch`` runs all the passes of one sort). No wrapper
+waits on the device.
 """
 from __future__ import annotations
 
@@ -117,12 +119,12 @@ def _bind(name: str, lib) -> None:
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     symbols = {
         "sort_pairs": [
-            ("sort_pairs_launch", [vp, vp, vp, vp, i64, i32, i32, vp, vp, vp],
-             i32),
-            ("sort_pairs_scratch_words", [i64], i64)],
+            ("sort_pairs_launch",
+             [vp, vp, vp, vp, vp, vp, i64, i32, i32, vp, vp, vp], i32),
+            ("sort_pairs_scratch_bytes", [i64], i64)],
         "seg_reduce_multi": [
             ("seg_reduce_launch",
-             [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp, vp], i32)],
+             [vp, i64, i32, i32, vp, vp, vp, vp, vp, vp], i32)],
         "take_many": [
             ("take_many_launch", [vp, i64, i32, vp, vp, vp, vp, vp], i32)],
     }[name]
@@ -225,11 +227,29 @@ def sort_pairs(key: torch.Tensor, idx: torch.Tensor,
     int32. The inputs are not modified. ``idx_ascending=True`` is the
     caller's promise that idx is already ascending (an iota), which skips
     the idx digit passes; a false promise gives a wrong order."""
-    n = int(key.shape[0])
-    if n <= 1:
+    if int(key.shape[0]) <= 1:
         return key, idx
     if not _on_cuda(key, idx):
         return sort_pairs_plain(key, idx)
+    return _sort_pairs_cuda(key, idx, idx_ascending)[:2]
+
+
+def sort_pairs_with_passes(key: torch.Tensor, idx: torch.Tensor,
+                           idx_ascending: bool = False):
+    """``sort_pairs`` of CUDA tensors of two or more pairs, and the key
+    digit passes it made (0 to 8): a diagnostic that waits on the device,
+    never called on the query path."""
+    _require(int(key.shape[0]) > 1 and _on_cuda(key, idx),
+             "sort_pairs_with_passes takes CUDA tensors of two or more pairs")
+    k, i, info = _sort_pairs_cuda(key, idx, idx_ascending)
+    return k, i, int(info[2])
+
+
+def _sort_pairs_cuda(key, idx, idx_ascending):
+    """Launches the sort; returns the sorted key and idx and the sort's
+    device info words (min key, the sentinels' remapped key, key passes,
+    spare)."""
+    n = int(key.shape[0])
     _require(key.dtype in (torch.int32, torch.int64),
              f"sort_pairs keys must be int32 or int64, not {key.dtype}")
     _require(key.dim() == 1 and idx.shape == key.shape,
@@ -237,18 +257,20 @@ def sort_pairs(key: torch.Tensor, idx: torch.Tensor,
     _require(n < 1 << 31, "sort_pairs takes fewer than 2^31 pairs")
     lib = _lib("sort_pairs")
     dev = key.device
-    k = key.contiguous().clone()
-    i = idx.to(torch.int32).contiguous().clone()
-    hist = torch.empty(lib.sort_pairs_scratch_words(n), dtype=torch.int32,
-                       device=dev)
-    totals = torch.empty(256, dtype=torch.int32, device=dev)
+    k = key.contiguous()
+    i = idx.to(torch.int32).contiguous()
+    scratch = torch.empty(lib.sort_pairs_scratch_bytes(n), dtype=torch.uint8,
+                          device=dev)
+    info = torch.empty(4, dtype=torch.int64, device=dev)
+    k_out, i_out = torch.empty_like(k), torch.empty_like(i)
     k_tmp, i_tmp = torch.empty_like(k), torch.empty_like(i)
-    _check(lib.sort_pairs_launch(k.data_ptr(), i.data_ptr(), k_tmp.data_ptr(),
-                                 i_tmp.data_ptr(), n, k.element_size(),
-                                 0 if idx_ascending else 1, hist.data_ptr(),
-                                 totals.data_ptr(), _stream()), "sort_pairs")
+    _check(lib.sort_pairs_launch(
+        k.data_ptr(), i.data_ptr(), k_out.data_ptr(), i_out.data_ptr(),
+        k_tmp.data_ptr(), i_tmp.data_ptr(), n, k.element_size(),
+        0 if idx_ascending else 1, scratch.data_ptr(), info.data_ptr(),
+        _stream()), "sort_pairs")
     LAUNCHES["sort_pairs"] += 1
-    return k, i
+    return k_out, i_out, info
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +370,21 @@ def seg_reduce_multi_plain(operands: list, gid: torch.Tensor,
     return [seg_reduce_plain(d, gid, num_segments, op) for d, op in operands]
 
 
+#: {(device, stream): int64 device words}: the kernel finds the words it
+#: uses zero and leaves them zero (its last block clears them), so they are
+#: kept per stream, where calls run in order, and no call clears them
+_SEG_SCRATCH: dict = {}
+
+
+def _seg_scratch(dev: torch.device, words: int) -> torch.Tensor:
+    key = (dev, torch.cuda.current_stream().cuda_stream)  # as _stream()
+    buf = _SEG_SCRATCH.get(key)
+    if buf is None or buf.numel() < words:
+        buf = _SEG_SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
+                                              device=dev)
+    return buf
+
+
 def seg_reduce_multi(operands: list, gid: torch.Tensor,
                      num_segments: int) -> list:
     """Fused segment reductions: ``operands`` is [(data, op)], each
@@ -373,15 +410,14 @@ def seg_reduce_multi(operands: list, gid: torch.Tensor,
     for lo in range(0, len(datas), per_launch):
         part = range(lo, min(len(datas), lo + per_launch))
         k = len(part)
-        acc = torch.empty(k * S, dtype=torch.int64, device=dev)
-        nan = torch.empty(k * S, dtype=torch.int64, device=dev)
+        scratch = _seg_scratch(dev, 2 * k * S + 1)
         dtypes = (ctypes.c_int * k)(*[_SEG_DTYPES[datas[j].dtype]
                                       for j in part])
         ops = (ctypes.c_int * k)(*[_SEG_OPS[operands[j][1]] for j in part])
         _check(lib.seg_reduce_launch(
             gid.data_ptr(), n, S, k, _ptrs([datas[j] for j in part]),
-            _ptrs([outs[j] for j in part]), dtypes, ops, acc.data_ptr(),
-            nan.data_ptr(), _stream()), "seg_reduce_multi")
+            _ptrs([outs[j] for j in part]), dtypes, ops, scratch.data_ptr(),
+            _stream()), "seg_reduce_multi")
         LAUNCHES["seg_reduce_multi"] += 1
     return outs
 

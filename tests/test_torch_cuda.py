@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
+from torch_inputs import seg_gids, sort_keys
 
 pytestmark = pytest.mark.cuda
 
@@ -56,11 +57,47 @@ def test_sort_pairs_kernel_matches_plain(dev, n, dtype):
           ck.sort_pairs_plain(key, iota))
 
 
+#: (keys, key dtype) -> the key digit passes the range remap leaves
+_PASSES = {("equal", np.int64): 0, ("sentinels", np.int32): 0,
+           ("01", np.int32): 1, ("ties", np.int64): 1,
+           ("highbyte", np.int64): 8, ("highbyte", np.int32): 4,
+           ("fullrange", np.int64): 8, ("fullrange", np.int32): 4}
+
+
+@pytest.mark.parametrize("repeat", [0, 1])
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 10_000_019])
+@pytest.mark.parametrize("keys,dtype", list(_PASSES))
+def test_sort_pairs_kernel_edges_match_plain(dev, keys, dtype, n, repeat):
+    """The range remap's pass counts (0, 1, 4, 8; odd and even), the tile
+    of 4096 pairs -1, +0, +1, and thousands of tiles for the look-back
+    between them, twice (a look-back race would show intermittently)."""
+    rng = np.random.default_rng(n + repeat)
+    key = torch.from_numpy(sort_keys(keys, n, dtype, rng)).to(dev)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    for idx, ascending in ((perm, False),
+                           (torch.arange(n, dtype=torch.int32), True)):
+        idx = idx.to(dev)
+        *got, passes = ck.sort_pairs_with_passes(key, idx,
+                                                 idx_ascending=ascending)
+        assert passes == _PASSES[keys, dtype]
+        _same(got, ck.sort_pairs_plain(key, idx))
+
+
 @pytest.mark.parametrize("S", [1, 100, 2048])
 def test_seg_reduce_multi_kernel_matches_plain(dev, S):
     g = torch.Generator().manual_seed(S)
     n = 30000
     gid = torch.randint(-2, S + 2, (n,), generator=g, dtype=torch.int32)
+    ops = _seg_operands(g, n)
+    ops = [(d.to(dev), op) for d, op in ops]
+    gid = gid.to(dev)
+    _same(ck.seg_reduce_multi(ops, gid, S),
+          ck.seg_reduce_multi_plain(ops, gid, S))
+
+
+def _seg_operands(g, n):
+    """19 operands: integer sums, min and max of every width, and float
+    min/max with NaN and signed zeros."""
     ops = []
     for dt in (torch.int8, torch.int16, torch.int32, torch.int64,
                torch.uint8):
@@ -70,10 +107,57 @@ def test_seg_reduce_multi_kernel_matches_plain(dev, S):
     x[::31] = float("nan")
     x[1::29] = -0.0
     ops += [(x, "min"), (x, "max"), (x.float(), "min"), (x.float(), "max")]
+    return ops
+
+
+@pytest.mark.parametrize("repeat", [0, 1])
+@pytest.mark.parametrize("S,n,gids", [
+    (8, 6_291_459, "segment0"), (8, 100_003, "alternating"),
+    (37, 100_003, "sorted"), (8, 4099, "dead"), (2048, 500_001, "random"),
+    # the query path's grouped shape; 4 rows a thread in row mode
+    (1024, 4096, "random"), (8, 1_000_003, "alternating"),
+    (37, 1_000_003, "random")])
+@pytest.mark.parametrize("nops", [2, 16])
+def test_seg_reduce_multi_kernel_edges_match_plain(dev, S, n, gids, nops,
+                                                   repeat):
+    """A global aggregate's shape (one live segment of S = 8), runs of one
+    row, long runs, no live row, many random segments, the query path's
+    grouped call (4096 rows), and rows enough for 4 rows a thread; two int64
+    sums (q9's shape) and 16 operands of every kind; unaligned operands
+    (a slice one row in) take the scalar loads."""
+    rng = np.random.default_rng(n + repeat)
+    g = torch.Generator().manual_seed(n + repeat)
+    gid = torch.from_numpy(seg_gids(gids, S, n, rng)).to(dev)
+    if nops == 2:
+        ops = [(torch.randint(-10 ** 12, 10 ** 12, (n,), generator=g), "sum")
+               for _ in range(2)]
+    else:
+        ops = _seg_operands(g, n)[3:]
     ops = [(d.to(dev), op) for d, op in ops]
-    gid = gid.to(dev)
+    if repeat:
+        gid = torch.cat([gid[:1], gid])[1:]
+        ops = [(torch.cat([d[:1], d])[1:], op) for d, op in ops]
     _same(ck.seg_reduce_multi(ops, gid, S),
           ck.seg_reduce_multi_plain(ops, gid, S))
+
+
+def test_seg_reduce_multi_scratch_is_left_clear(dev):
+    """The kernel clears the device words it used, which the wrapper keeps
+    for the next call on the stream: calls of other shapes in turn (float
+    operands with NaN words and without, S = 8 and 1024, one launch and a
+    grid of blocks) each match the plain version."""
+    g = torch.Generator().manual_seed(5)
+    floats = _seg_operands(g, 70_000)[15:]
+    ints = [(torch.randint(-10 ** 12, 10 ** 12, (70_000,), generator=g),
+             "sum")]
+    for ops, S, n in ((floats, 8, 70_000), (ints, 1024, 4096),
+                      (floats, 8, 300), (ints, 1024, 70_000),
+                      (floats, 8, 70_000)):
+        gid = torch.randint(-1, S + 1, (n,), generator=g,
+                            dtype=torch.int32).to(dev)
+        part = [(d[:n].to(dev), op) for d, op in ops]
+        _same(ck.seg_reduce_multi(part, gid, S),
+              ck.seg_reduce_multi_plain(part, gid, S))
 
 
 def test_take_many_kernel_matches_plain(dev):

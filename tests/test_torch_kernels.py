@@ -5,11 +5,14 @@ is what runs on CPU tensors. Here every plain version must be
 BIT-IDENTICAL to its Pallas kernel, run in interpret mode exactly as
 tests/test_pallas_kernels.py runs it, on the same numpy inputs: sort
 pairs with ties, sentinel blocks, non-power-of-two lengths, int32/int64
-keys and non-iota payloads; segment reductions with out-of-range gids,
-empty segments, S = 1 and 2048, int8..int64 and float min/max with NaN
-and signed zeros; gathers of every dtype with JAX's clamped and wrapped
-indices. The CUDA kernels themselves are held to the same plain versions
-on the card (tests/test_torch_cuda.py, chip_smoke.py).
+keys and non-iota payloads, keys all equal, only sentinels, 0/1 keys, keys
+that differ in the high byte only and keys over the whole type; segment
+reductions with out-of-range gids, empty segments, S = 1, 8 and 2048, one
+live segment, alternating, sorted and all-dead gids, int8..int64 and
+float min/max with NaN and signed zeros; gathers of every dtype with
+JAX's clamped and wrapped indices. The CUDA kernels themselves are held
+to the same plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import jax.numpy as jnp
 
 from nds_tpu.engine.jax_backend import pallas_kernels as pk
 from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
+from torch_inputs import seg_gids, sort_keys
 
 ALL_OPS = frozenset({"sort", "groupby", "gather"})
 
@@ -50,14 +54,33 @@ def _same(got: torch.Tensor, want) -> None:
 # sort_pairs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("n,dtype,payload", [
-    (2, np.int64, "iota"), (5, np.int32, "perm"), (1000, np.int32, "iota"),
-    (3001, np.int64, "perm"), (4096, np.int64, "perm"),
-    (6144, np.int32, "perm"), (9000, np.int64, "iota")])
-def test_sort_pairs_plain_matches_pallas(n, dtype, payload):
+def _p(*values):
+    """A parametrised case whose id joins its values, leaving out the
+    original input kind ("ties", "random") so the original cases keep
+    their ids."""
+    shown = values[:-1] if values[-1] in ("ties", "random") else values
+    return pytest.param(*values, id="-".join(
+        getattr(v, "__name__", str(v)) for v in shown))
+
+
+@pytest.mark.parametrize("n,dtype,payload,keys", [
+    _p(2, np.int64, "iota", "ties"), _p(5, np.int32, "perm", "ties"),
+    _p(1000, np.int32, "iota", "ties"), _p(3001, np.int64, "perm", "ties"),
+    _p(4096, np.int64, "perm", "ties"), _p(6144, np.int32, "perm", "ties"),
+    _p(9000, np.int64, "iota", "ties"),
+    # the range remap's edges: no key pass, one pass, all eight passes,
+    # and the CUDA kernel's tile of 4096 pairs -1, +0, +1
+    _p(4095, np.int64, "iota", "equal"),
+    _p(3000, np.int32, "perm", "equal"),
+    _p(4096, np.int64, "perm", "sentinels"),
+    _p(4097, np.int32, "iota", "01"),
+    _p(5000, np.int64, "perm", "highbyte"),
+    _p(2500, np.int32, "iota", "highbyte"),
+    _p(6000, np.int64, "perm", "fullrange"),
+    _p(3001, np.int32, "iota", "fullrange")])
+def test_sort_pairs_plain_matches_pallas(n, dtype, payload, keys):
     rng = np.random.default_rng(n)
-    key = rng.integers(-9, 9, n).astype(dtype)          # heavy ties
-    key[: n // 3] = np.iinfo(dtype).max                 # sentinel block
+    key = sort_keys(keys, n, dtype, rng)
     idx = (np.arange(n) if payload == "iota" else rng.permutation(n)) \
         .astype(np.int32)
     pk.set_active(ALL_OPS)
@@ -97,10 +120,19 @@ def _float_operand(rng, n, dtype):
     return x
 
 
-@pytest.mark.parametrize("S,n", [(1, 5000), (37, 5000), (2048, 3000)])
-def test_seg_reduce_multi_plain_matches_pallas(S, n):
+@pytest.mark.parametrize("S,n,gids", [
+    _p(1, 5000, "random"), _p(37, 5000, "random"), _p(2048, 3000, "random"),
+    # a global aggregate's shape (every live row in segment 0 of S = 8),
+    # runs of one row, long runs, and no live row at all
+    _p(8, 6000, "segment0"),
+    _p(8, 5001, "alternating"),
+    _p(37, 5003, "sorted"),
+    _p(8, 4099, "dead"),
+    # the query path's grouped shape
+    _p(1024, 4096, "random")])
+def test_seg_reduce_multi_plain_matches_pallas(S, n, gids):
     rng = np.random.default_rng(S)
-    gid = rng.integers(-3, S + 3, n).astype(np.int32)   # out-of-range rows
+    gid = seg_gids(gids, S, n, rng)
     ops = []
     for dt in _INT_DTYPES:
         info = np.iinfo(dt)
