@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of nds_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--sf 10] [--profile] [--parent TREE]
+    python3 chip_smoke.py [--sf 10] [--templates_sf 1] [--profile]
+                          [--parent TREE]
 
 Phases, one JSON line each:
 
@@ -9,20 +10,30 @@ Phases, one JSON line each:
    three CUDA kernels compiled from nds_tpu_torch/csrc/ with nvcc;
 2. data: NDS tables generated at --sf by the native generator into a
    temporary directory and registered from CSV, decimals as exact int64;
-3. queries: NDS queries 3, 7, 9, 42, 55 and 96 (stream 0, template
-   seed 3) through Session.sql(backend="torch") on the card, strict (a
-   node that falls back to the host fails the run), cold and warm, held
-   against the port's numpy executor on the same session.
+3. queries: NDS queries 3, 7, 9, 42, 55 and 96, and the queries of the
+   window, set-operation and concatenation paths, 2, 5, 12, 38, 47, 51,
+   67 and 87 (stream 0, template seed 3), through
+   Session.sql(backend="torch") on the card, strict (a node that falls
+   back to the host fails the run), cold and warm, held against the
+   port's numpy executor on the same session.
    The launch counters are zeroed just before and read just after, and
    every kernel must have launched;
-4. kernels: each kernel on the largest inputs the query phase gave it in
+4. spare slot: the first-row-per-group scatter at the largest call that
+   queries 38 and 87 made, beside the reference's form of it (every row
+   outside the mask on one spare slot), bit-identical;
+5. kernels: each kernel on the largest inputs the query phase gave it in
    each regime (the sort with an int32 and an int64 key, the segment
    reduction as a global aggregate and grouped), and on edge cases, held
    bit-identical against its plain PyTorch version on the card, and timed
    beside the plain version, one PyTorch library call and the least time
    the card's memory rate allows, each on the device alone (``ms``) and
    with the host's enqueueing (``host_ms``). ``--parent TREE`` (repeatable)
-   also times the kernels of other checkouts on the same inputs, in turns.
+   also times the kernels of other checkouts on the same inputs, in turns;
+6. templates: every unit of the 99 NDS templates (103: four templates
+   hold two statements) at --templates_sf, generated into the same
+   temporary directory, cold and warm on the card, strict, held against
+   the numpy executor, with the launch counters zeroed just before and
+   read just after.
 
 Then the kernel table as one JSON line and, last, the device line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
@@ -48,7 +59,11 @@ REPLACES = {
 #: the kernels redesigned for the card after their first port: their
 #: edge cases are timed too, and their launches broken down by kernel
 REDESIGNED = ("sort_pairs", "seg_reduce_multi")
-QUERIES = (3, 7, 9, 42, 55, 96)
+#: the first slice's six queries, then the window (12, 47, 51, 67),
+#: set-operation (2, 5, 38, 87) and concatenation (5) paths at full scale
+QUERIES = (3, 7, 9, 42, 55, 96, 2, 5, 12, 38, 47, 51, 67, 87)
+#: the queries whose largest first-row scatter the spare-slot phase times
+SPARE_SLOT_QUERIES = (38, 87)
 SEED = 3
 #: the card the bounds are computed for, and its memory rate (NVIDIA data
 #: sheet), bytes/s
@@ -65,15 +80,18 @@ def emit(phase: str, **fields) -> None:
 # ---------------------------------------------------------------------------
 
 class Recorder:
-    """Wraps each kernel wrapper of cuda_kernels and keeps (a copy of) the
-    inputs of its largest call in each regime, and the frames of the port
-    that made it; the wrapper itself runs unchanged. A sort's regime is its
-    key type; a segment reduction's is decided after the run (``regimes``),
-    since telling a global aggregate from a grouped one reads the gids
-    back."""
+    """Wraps each kernel wrapper of cuda_kernels, and any other function
+    given to ``wrap``, and keeps (a copy of) the inputs of its largest call
+    in each regime, and the frames of the port that made it; the function
+    itself runs unchanged. A sort's regime is its key type; a segment
+    reduction's is decided after the run (``regimes``), since telling a
+    global aggregate from a grouped one reads the gids back. ``label`` is
+    the unit being run (set by run_units), for a regime keyed by it; a
+    call whose regime is None is not kept."""
 
     def __init__(self, ck):
         self.ck = ck
+        self.label = None
         self.largest: dict = {}
         self.calls: dict = {}
         self.orig: dict = {}
@@ -86,19 +104,19 @@ class Recorder:
                  lambda ops, g, s: (s, int(g.shape[0]), len(ops))),
                 ("take_many", lambda srcs, i: int(i.shape[0]) * len(srcs),
                  lambda srcs, i: "gather")):
-            self._wrap(name, size, regime)
+            self.wrap(ck, name, size, regime)
 
-    def _wrap(self, name, size, regime):
-        orig = self.orig[name] = getattr(self.ck, name)
+    def wrap(self, mod, name, size, regime):
+        orig = self.orig[name] = getattr(mod, name)
 
         def wrapped(*args, **kwargs):
             n = size(*args)
             key = (name, regime(*args))
             self.calls[name] = self.calls.get(name, 0) + 1
-            if n > self.largest.get(key, (-1,))[0]:
+            if key[1] is not None and n > self.largest.get(key, (-1,))[0]:
                 self.largest[key] = (n, _clone(args), kwargs, _callers())
             return orig(*args, **kwargs)
-        setattr(self.ck, name, wrapped)
+        setattr(mod, name, wrapped)
 
     def regimes(self) -> dict:
         """{kernel: [(regime, args, kwargs, callers), ...]}, the largest call
@@ -106,6 +124,8 @@ class Recorder:
         aggregate when its live rows (gid in [0, S)) all hold one gid."""
         best: dict = {}
         for (name, reg), (n, args, kwargs, callers) in self.largest.items():
+            if name not in REPLACES:
+                continue
             if name == "seg_reduce_multi":
                 _, gid, S = args
                 live = gid[(gid >= 0) & (gid < S)]
@@ -211,58 +231,152 @@ def phase_card_build(ck) -> str:
     return smi
 
 
-def phase_data(nt, sf: float, tmp: str, device: str = "cuda"):
+def phase_data(nt, sf: float, tmp: str, device: str = "cuda",
+               name: str = "data"):
     from nds_tpu_torch import datagen
-    data = os.path.join(tmp, "data")
+    data = os.path.join(tmp, name)
     t0 = time.perf_counter()
     datagen.generate(data, sf, parallel=len(os.sched_getaffinity(0)))
     gen_s = time.perf_counter() - t0
     session = nt.Session(nt.EngineConfig(decimal_physical="i64"),
                          device=device)
     names = datagen.setup_tables(session, data, use_decimal=True)
-    emit("data", sf=sf, generate_s=gen_s, tables=len(names),
+    emit(name, sf=sf, generate_s=gen_s, tables=len(names),
          csv_bytes=sum(os.path.getsize(os.path.join(r, f))
                        for r, _, fs in os.walk(data) for f in fs))
     return session
 
 
-def phase_queries(session, ck) -> dict:
+_FORKED: dict = {}
+
+
+def _oracle(sql: str):
+    t0 = time.perf_counter()
+    want = _FORKED["session"].sql(sql, backend="numpy")
+    return want, time.perf_counter() - t0
+
+
+def oracle_results(session, sqls: list) -> list:
+    """[(the numpy executor's result, seconds)] for each query of `sqls`
+    on `session`, in worker processes forked from this one: they share the
+    host tables the session has loaded so far and never touch the card."""
+    import multiprocessing
+    _FORKED["session"] = session
+    workers = min(len(sqls), max(1, len(os.sched_getaffinity(0)) - 2))
+    try:
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            return pool.map(_oracle, sqls, chunksize=1)
+    finally:
+        _FORKED.clear()         # the caller may free the session
+
+
+def run_units(session, ck, units: list, phase: str,
+              recorder=None) -> dict:
+    """Each (name, sql) of `units` cold (loads and uploads included) and
+    warm through Session.sql(backend="torch"), with the launch counters
+    zeroed just before the first and read just after the last; then every
+    result against the numpy executor (oracle_results). One `phase` line
+    per unit; fails after the last line if any unit fell back to the host
+    or disagreed. Sets ``recorder.label`` to each unit's name while it
+    runs. Returns the counter totals."""
     import torch
-    from nds_tpu_torch import streams
     from nds_tpu_torch.validate import table_mismatches
-    per_query = {}
-    ck.reset_launches()                 # the main path starts here
-    for q in QUERIES:
-        sql = streams.instantiate(q, stream=0, rngseed=SEED)
+    on_card = session.device.type == "cuda"
+    runs, failed = [], []
+    ck.reset_launches()                 # the path starts here
+    for name, sql in units:
+        if recorder is not None:
+            recorder.label = name
         before = dict(ck.LAUNCHES)
         walls = []
-        for _ in range(2):              # cold (loads + uploads), warm
+        for _ in range(2):              # cold, warm
             t0 = time.perf_counter()
             got = session.sql(sql, backend="torch")
-            torch.cuda.synchronize()
+            if on_card:
+                torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             if session.last_fallbacks:
-                raise SystemExit(f"query{q}: host fallback "
-                                 f"{session.last_fallbacks}")
-        launches = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES}
-        t0 = time.perf_counter()
-        want = session.sql(sql, backend="numpy")
-        oracle_s = time.perf_counter() - t0
+                failed.append(f"{name}: host fallback "
+                              f"{session.last_fallbacks}")
+        runs.append((got, walls, {k: ck.LAUNCHES[k] - before[k]
+                                  for k in ck.LAUNCHES},
+                     torch.cuda.max_memory_allocated() / 2 ** 30
+                     if on_card else 0.0))
+    totals = dict(ck.LAUNCHES)          # read just after the path
+    if recorder is not None:
+        recorder.label = None
+    oracle = oracle_results(session, [sql for _, sql in units])
+    for (name, _), (got, walls, launches, mem), (want, oracle_s) in zip(
+            units, runs, oracle):
         bad = table_mismatches(got, want)
         if bad:
-            raise SystemExit(f"query{q} disagrees with the numpy oracle: "
-                             f"{bad}")
-        per_query[q] = launches
-        emit("query", query=f"query{q}", cold_s=walls[0], warm_s=walls[1],
+            failed.append(f"{name} disagrees with the numpy oracle: {bad}")
+        emit(phase, unit=name, cold_s=walls[0], warm_s=walls[1],
              oracle_s=oracle_s, rows=got.num_rows, launches=launches,
-             peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    totals = dict(ck.LAUNCHES)          # read just after the main path
+             peak_mem_gb=mem)
+    if failed:
+        raise SystemExit(f"{phase}: " + "\n".join(failed))
     missing = [k for k, v in totals.items() if v == 0]
     if missing:
-        raise SystemExit(f"kernels never launched on the main path: "
-                         f"{missing}")
+        raise SystemExit(f"{phase}: kernels never launched: {missing}")
+    return totals
+
+
+def phase_queries(session, ck, recorder=None) -> dict:
+    """QUERIES at the session's scale: the main path."""
+    from nds_tpu_torch import streams
+    units = [(f"query{q}", streams.instantiate(q, stream=0, rngseed=SEED))
+             for q in QUERIES]
+    totals = run_units(session, ck, units, "query", recorder)
     emit("launches", totals=totals)
     return totals
+
+
+def first_row_one_slot(gid, mask):
+    """The reference's form of kernels.first_row_per_gid: every row outside
+    the mask lands on the one spare slot n of a min scatter."""
+    import torch
+    n = int(gid.shape[0])
+    first = torch.full((n + 1,), n, dtype=torch.int32, device=gid.device)
+    target = torch.where(mask, gid, n).long().clamp(0, n)
+    return first.scatter_reduce_(
+        0, target, torch.arange(n, dtype=torch.int32, device=gid.device),
+        "amin")
+
+
+def phase_spare_slot(recorder) -> None:
+    """kernels.first_row_per_gid (a slot of its own for each row outside
+    the mask) beside the reference's one-spare-slot form, at the largest
+    call that SPARE_SLOT_QUERIES made (``recorder`` wraps it, keyed by
+    query); the two must be bit-identical."""
+    first_row = recorder.orig["first_row_per_gid"]
+    calls = [(recorder.largest[key], key[1]) for key in (
+        ("first_row_per_gid", f"query{q}") for q in SPARE_SLOT_QUERIES)
+        if key in recorder.largest]
+    if not calls:
+        raise SystemExit(f"queries {SPARE_SLOT_QUERIES} made no first-row "
+                         "scatter")
+    (n, (gid, mask), _, callers), q = max(calls, key=lambda c: c[0][0])
+    ok, _ = same_bits([first_row(gid, mask)], [first_row_one_slot(gid, mask)])
+    if not ok:
+        raise SystemExit("first_row_per_gid differs from its one-slot form")
+    emit("spare_slot", query=q, n=n,
+         outside_mask=int((~mask).sum()), callers=callers,
+         bit_identical=True,
+         **_times("", [time_ms(lambda: first_row(gid, mask))]),
+         **_times("one_slot_", [time_ms(
+             lambda: first_row_one_slot(gid, mask))]))
+
+
+def phase_templates(nt, ck, sf: float, tmp: str, device: str = "cuda"):
+    """Every unit of every template at `sf`, on a session of its own."""
+    from nds_tpu_torch import streams
+    session = phase_data(nt, sf, tmp, device, name="templates_data")
+    units = streams.template_units(stream=0, rngseed=SEED)
+    t0 = time.perf_counter()
+    totals = run_units(session, ck, units, "template")
+    emit("templates", sf=sf, units=len(units),
+         seconds=time.perf_counter() - t0, launches=totals)
 
 
 def dev_us(e) -> float:
@@ -616,6 +730,8 @@ def load_parent(tree: str, k: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
+    ap.add_argument("--templates_sf", type=float, default=1.0,
+                    help="scale of the phase that runs every template")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm run of each query")
     ap.add_argument("--parent", metavar="TREE", action="append", default=[],
@@ -630,6 +746,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import nds_tpu_torch as nt
     from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
+    from nds_tpu_torch.engine.torch_backend import kernels
 
     t_start = time.perf_counter()
     smi = phase_card_build(ck)
@@ -645,14 +762,22 @@ def main() -> int:
     try:
         session = phase_data(nt, args.sf, tmp)
         recorder = Recorder(ck)
-        launches = phase_queries(session, ck)
+        spare_labels = {f"query{q}" for q in SPARE_SLOT_QUERIES}
+        recorder.wrap(kernels, "first_row_per_gid",
+                      lambda gid, mask: int(gid.shape[0]),
+                      lambda gid, mask: recorder.label
+                      if recorder.label in spare_labels else None)
+        launches = phase_queries(session, ck, recorder)
         if args.profile:
             phase_profile(session)
+        del session         # its tables, host and device, are not needed
+        phase_spare_slot(recorder)
         emit("largest_inputs", calls=recorder.calls, **{
             k: {reg: f"{_shape(k, a)} from {callers}"
                 for reg, a, _, callers in v}
             for k, v in recorder.regimes().items()})
         rows = phase_kernels(ck, recorder, launches, parents=parents)
+        phase_templates(nt, ck, args.templates_sf, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)

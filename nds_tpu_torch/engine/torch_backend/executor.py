@@ -7,10 +7,9 @@ chosen (after filters, joins and aggregates). Scanned tables stay resident
 on the device across queries.
 
 Not in this slice: compiled whole-plan replay, batched programs, CTE
-segmentation, mesh execution, window functions and set operations. A node
-the device path does not cover raises NotImplementedError and falls back
-to the numpy host executor for that node only (``fallback_nodes`` names
-it), as in the reference.
+segmentation and mesh execution. A node the device path does not cover
+raises NotImplementedError and falls back to the numpy host executor for
+that node only (``fallback_nodes`` names it), as in the reference.
 """
 from __future__ import annotations
 
@@ -25,7 +24,8 @@ from ..executor import Executor as HostExecutor
 from ..executor import load_columns
 from ..plan import (AggregateNode, AggSpec, BCall, BCol, BExpr, DistinctNode,
                     FilterNode, JoinNode, LimitNode, MaterializedNode,
-                    PlanNode, ProjectNode, ScanNode, SortNode)
+                    PlanNode, ProjectNode, ScanNode, SetOpNode, SortNode,
+                    WindowFunc, WindowNode)
 from . import cuda_kernels as _ck
 from . import exprs, kernels
 from .device import (DCol, DTable, bucket, phys_dtype, rank_key,
@@ -145,6 +145,8 @@ class TorchExecutor:
             return self._run_join(node)
         if isinstance(node, AggregateNode):
             return self._run_aggregate(node)
+        if isinstance(node, WindowNode):
+            return self._run_window(node)
         if isinstance(node, SortNode):
             return self._run_sort(node)
         if isinstance(node, LimitNode):
@@ -157,7 +159,39 @@ class TorchExecutor:
             alive = self._distinct_alive(child, list(range(len(child.cols))))
             return self._maybe_compact(DTable(list(node.out_names),
                                               child.cols, alive))
+        if isinstance(node, SetOpNode):
+            return self._run_setop(node)
         raise NotImplementedError(type(node).__name__)
+
+    def _run_setop(self, node: SetOpNode) -> DTable:
+        left = self.execute(node.left)
+        right = self.execute(node.right)
+        names = list(node.out_names)
+        both = _concat_dtables([left, right], names)
+        if node.op == "union":
+            if node.all:
+                return both
+            alive = self._distinct_alive(both, list(range(len(both.cols))))
+            return self._maybe_compact(DTable(names, both.cols, alive))
+        # intersect / except: distinct-row semantics (the host's ops.set_op)
+        n = both.capacity
+        iota = self._iota(n)
+        is_left = iota < left.capacity
+        gid, _ = self._dense_rank([rank_key(c) for c in both.cols],
+                                  [c.valid for c in both.cols], both.alive)
+        # as in the reference, every row outside a side (and every dead
+        # row) lands on the spare slot n of an n + 1 buffer, which no
+        # alive row reads
+        safe_gid = torch.where(both.alive, gid, n).long()
+        in_left = torch.zeros(n + 1, dtype=torch.bool, device=self.device)
+        in_left[torch.where(is_left, safe_gid, n)] = True
+        in_right = torch.zeros(n + 1, dtype=torch.bool, device=self.device)
+        in_right[torch.where(is_left, n, safe_gid)] = True
+        keep = in_left & (in_right if node.op == "intersect" else ~in_right)
+        first_left = kernels.first_row_per_gid(gid, both.alive & is_left)
+        g = gid.long().clamp(0, n)
+        alive = both.alive & is_left & keep[g] & (first_left[g] == iota)
+        return self._maybe_compact(DTable(names, both.cols, alive))
 
     def _run_scan(self, node: ScanNode) -> DTable:
         cache_key = node.table + "//" + ",".join(node.columns)
@@ -187,6 +221,60 @@ class TorchExecutor:
         n = t.capacity
         first = kernels.first_row_per_gid(gid, t.alive)
         return t.alive & (first[gid.long().clamp(0, n)] == self._iota(n))
+
+    # -- window functions ----------------------------------------------------
+    def _run_window(self, node: WindowNode) -> DTable:
+        child = self.execute(node.child)
+        out_cols = list(child.cols)
+        for wf in node.funcs:
+            out_cols.append(self._window_one(wf, child))
+        return DTable(list(node.out_names), out_cols, child.alive)
+
+    def _window_one(self, wf: WindowFunc, child: DTable) -> DCol:
+        n = child.capacity
+        pcols = [self._eval(e, child) for e in wf.partition_by]
+        gid, _ = self._dense_rank([rank_key(c) for c in pcols],
+                                  [c.valid for c in pcols], child.alive)
+        # the reference widens narrow-lane columns here (widen_col); the
+        # port's columns are always wide
+        arg_col = None if wf.arg is None else self._eval(wf.arg, child)
+        if arg_col is not None and arg_col.dtype == "str":
+            raise NotImplementedError("window function over strings (device)")
+        func = wf.func
+        if arg_col is None:
+            if func in ("count", "count_star"):
+                func = "count_star"
+            arg = None
+        else:
+            arg = (arg_col.canon().data, arg_col.valid)
+
+        if not wf.order_by:
+            if func in ("rank", "dense_rank", "row_number"):
+                raise NotImplementedError(f"{func} requires ORDER BY")
+            vals, valid = kernels.agg_apply(gid, child.alive, func, arg, n)
+            # dead rows (gid n) clamp to the last group slot, as JAX does
+            data, dvalid = kernels.gather_many([vals, valid], gid)
+        else:
+            ocols = [self._eval(k.expr, child) for k in wf.order_by]
+            okd = [rank_key(c) for c in ocols]
+            okv = [c.valid for c in ocols]
+            specs = ((True, None),) + kernels.sort_specs(wf.order_by)
+            ones = torch.ones(n, dtype=torch.bool, device=self.device)
+            perm = kernels.sort_perm([gid] + okd, [ones] + okv, specs,
+                                     child.alive)
+            k = len(okd)
+            sorted_ = kernels.gather_many(
+                [gid] + okd + okv + ([] if arg is None else list(arg)), perm)
+            sarg = None if arg is None else tuple(sorted_[1 + 2 * k:])
+            vals_s, valid_s = kernels.window_ordered_core(
+                sorted_[0], sorted_[1:1 + k], sorted_[1 + k:1 + 2 * k],
+                sarg, func)
+            data, dvalid = kernels.unscatter(perm, (vals_s, valid_s))
+        if arg_col is not None and is_dec(arg_col.dtype) and \
+                wf.func == "avg":
+            data = data / 10.0 ** dec_scale(arg_col.dtype)   # descale
+        return DCol(wf.dtype, data.to(phys_dtype(wf.dtype)),
+                    dvalid & child.alive)
 
     # -- aggregate -----------------------------------------------------------
     def _run_aggregate(self, node: AggregateNode) -> DTable:

@@ -6,9 +6,8 @@ work never touches the device: predicates, substrings and parses are
 computed once over the host dictionary and become lookup tables that the
 device gathers at the row codes.
 
-Raises NotImplementedError for host-only cases (string concatenation,
-parameter slots); the executor falls back to the numpy backend for that
-plan node.
+Raises NotImplementedError for host-only cases (parameter slots); the
+executor falls back to the numpy backend for that plan node.
 """
 from __future__ import annotations
 
@@ -477,6 +476,34 @@ def _case_map(fn):
     return run
 
 
+def _concat(expr: BCall, table: DTable, sq) -> DCol:
+    """String concatenation as a dictionary column. The reference builds a
+    lazy compound column and flattens it where it is consumed; its
+    concrete flatten is done here at once: the distinct tuples of part
+    codes (a null part contributes "") are joined on the host, and the
+    rows gather their code in the sorted dictionary of the results. The
+    result is NULL where any part is."""
+    cols = _args(expr, table, sq)
+    if any(c.dtype != "str" for c in cols):
+        raise NotImplementedError("device concat of non-string")
+    valid = cols[0].valid
+    for c in cols[1:]:
+        valid = valid & c.valid
+    codes = torch.stack([torch.where(c.valid, c.data, -1) for c in cols], 1)
+    tuples, inverse = torch.unique(codes, dim=0, return_inverse=True)
+    tuples = tuples.cpu().numpy()
+    joined = np.full(len(tuples), "", dtype=object)
+    for j, c in enumerate(cols):
+        d = _dict(c)
+        part = tuples[:, j]
+        vals = np.where(part >= 0, d[np.clip(part, 0, max(len(d) - 1, 0))]
+                        if len(d) else "", "")
+        joined = joined + vals
+    uniq, remap = np.unique(joined.astype(str), return_inverse=True)
+    return DCol("str", lut_gather(inverse, remap.astype(np.int32)), valid,
+                uniq.astype(object))
+
+
 def _abs(expr: BCall, table: DTable, sq) -> DCol:
     a = evaluate(expr.args[0], table, sq)
     return DCol(a.dtype, torch.abs(a.data), a.valid)
@@ -515,7 +542,7 @@ _HANDLERS = {
     "isnull": _isnull, "isnotnull": _isnotnull,
     "in_list": _in_list, "like": _like,
     "case": _case, "coalesce": _coalesce, "cast": _cast,
-    "substr": _substr, "abs": _abs, "round": _round,
+    "substr": _substr, "concat": _concat, "abs": _abs, "round": _round,
     "upper": _case_map(str.upper), "lower": _case_map(str.lower),
     "nullif": _nullif, "grouping_bit": _grouping_bit,
 }

@@ -386,12 +386,21 @@ def group_representatives(gid: torch.Tensor, alive: torch.Tensor,
 
 def first_row_per_gid(gid: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """For each gid in [0, n], the smallest row index with that gid among
-    rows in `mask` (n where none): the reference's
-    ``full(n + 1, n).at[where(mask, gid, n)].min(iota)``."""
+    rows in `mask`, n where none, and in slot n the smallest row index of
+    all rows outside `mask` too: the reference's
+    ``full(n + 1, n).at[where(mask, gid, n)].min(iota)``.
+
+    The reference sends every row outside `mask` to slot n. As a min
+    scatter on CUDA those rows would queue on one atomic, so each takes a
+    slot of its own past n (a 2n + 1 buffer), and slot n folds them in
+    afterwards with one reduction: the same bits."""
     n = int(gid.shape[0])
-    first = torch.full((n + 1,), n, dtype=_I32, device=gid.device)
-    target = torch.where(mask, gid, n).long().clamp(0, n)
-    return first.scatter_reduce_(0, target, _iota(n, gid.device), "amin")
+    iota = _iota(n, gid.device)
+    first = torch.full((2 * n + 1,), n, dtype=_I32, device=gid.device)
+    target = torch.where(mask, gid.long().clamp(0, n), n + 1 + iota.long())
+    first.scatter_reduce_(0, target, iota, "amin")
+    first[n] = torch.minimum(first[n], first[n:].min())
+    return first[:n + 1]
 
 
 def distinct_within_group(gid: torch.Tensor, alive: torch.Tensor,
@@ -413,19 +422,32 @@ def distinct_within_group(gid: torch.Tensor, alive: torch.Tensor,
 # sorted aggregation: within-group scans over key-sorted rows
 # ---------------------------------------------------------------------------
 
+def run_bounds(x: torch.Tensor):
+    """For a NON-DECREASING x: (first, last), the indices of the first and
+    the last row that holds x[i]. Equal to the reference's running max of
+    flagged starts (``lax.cummax``) and ``segment_max(iota, x)``, with
+    neither a scan nor a scatter (both are slow on CUDA)."""
+    first = torch.searchsorted(x, x, out_int32=True)
+    last = torch.searchsorted(x, x, right=True, out_int32=True) - 1
+    return first, last
+
+
 def sorted_agg_scan(vals: torch.Tensor, new_group: torch.Tensor,
                     op: str) -> torch.Tensor:
     """Inclusive within-group scan of op ("add", "min", "max") over
     KEY-SORTED rows; group totals sit at group-end rows. Integer sums use
-    one cumulative sum (exact: wrapping arithmetic is a ring); float sums
-    and min/max use a log-depth segmented scan."""
+    one cumulative sum minus its value before the group's first row
+    (exact: wrapping arithmetic is a ring); float sums and min/max use a
+    log-depth segmented scan."""
     n = int(vals.shape[0])
     if n == 0:
         return vals
     if op == "add" and not vals.dtype.is_floating_point:
         c = torch.cumsum(vals, 0, dtype=vals.dtype)
-        start = torch.cummax(torch.where(
-            new_group, torch.arange(n, device=vals.device), 0), 0).values
+        # the group's first row: the reference's running max of flagged
+        # row ids, as a binary search over the non-decreasing group count
+        start, _ = run_bounds(_cumsum_i32(new_group) - 1)
+        start = start.long()
         before = torch.where(start > 0, c[(start - 1).clamp(min=0)],
                              torch.zeros_like(c))
         return c - before
@@ -451,6 +473,68 @@ def group_ends(new_group: torch.Tensor, alive_sorted: torch.Tensor
     next_dead = torch.ones(n, dtype=torch.bool, device=new_group.device)
     next_dead[:-1] = ~alive_sorted[1:]
     return alive_sorted & (next_new | next_dead)
+
+
+# ---------------------------------------------------------------------------
+# window functions
+# ---------------------------------------------------------------------------
+
+def window_ordered_core(sgid: torch.Tensor, tie_data: list, tie_valid: list,
+                        arg, func: str):
+    """Ordered-window values over rows ALREADY sorted by (partition, order):
+    the reference's ``window_ordered_core``.
+
+    sgid: sorted partition ids (dead rows hold a trailing sentinel id), so
+    non-decreasing. tie_data/tie_valid: sorted order-key columns for RANGE
+    tie detection. arg: (data, valid) in sorted order, or None (rank
+    family / count_star). Returns (values, valid) in sorted order. RANGE
+    frames: every row of a tie run takes the run's last cumulative value.
+    Integer sums are bit-identical to the reference's; float sums and
+    averages take another order (a log-depth scan)."""
+    n = int(sgid.shape[0])
+    dev = sgid.device
+    iota = _iota(n, dev)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    new_part = _changed(sgid)
+    same = ~new_part
+    for d, v in zip(tie_data, tie_valid):
+        same = same & ~_changed(d) & ~_changed(v)
+    part_start, _ = run_bounds(sgid)
+    pos_in_part = iota - part_start
+    if func == "row_number":
+        return pos_in_part + 1, ones
+    new_run = ~same          # a run is a maximal tie group in a partition
+    run_id = _cumsum_i32(new_run) - 1
+    run_start, run_last = run_bounds(run_id)
+    if func == "rank":
+        return run_start - part_start + 1, ones
+    if func == "dense_rank":
+        cb = _cumsum_i32(new_run & ~new_part)
+        return cb - cb[part_start.long()] + 1, ones
+
+    last = run_last.long()
+    if func == "count_star":
+        return (pos_in_part + 1)[last], ones
+    data, valid = arg
+    run_count = sorted_agg_scan(valid.to(_I32), new_part, "add")[last]
+    out_valid = run_count > 0
+    if func == "count":
+        return run_count, ones
+    int_in = not data.dtype.is_floating_point and data.dtype != torch.bool
+    if func in ("sum", "avg"):
+        acc = data.dtype if int_in else _F64
+        w = torch.where(valid, data.to(acc), torch.zeros((), dtype=acc,
+                                                         device=dev))
+        run_sum = sorted_agg_scan(w, new_part, "add")[last]
+        if func == "sum":
+            return run_sum, out_valid
+        return run_sum.to(_F64) / torch.clamp(run_count, min=1).to(_F64), \
+            out_valid
+    if func in ("min", "max"):
+        vals = torch.where(valid, data, _extreme(data.dtype, func))
+        out = sorted_agg_scan(vals, new_part, func)[last]
+        return torch.where(out_valid, out, torch.zeros_like(out)), out_valid
+    raise NotImplementedError(f"device window {func}")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,9 @@
 # Copied from nds_tpu/streams.py: the template loader and its parameter DSL
-# (load_template, instantiate and their helpers), verbatim. The port ships
-# copies of only the templates it runs (nds_tpu_torch/templates/).
+# (load_template, instantiate and their helpers), available_templates and
+# the two-statement templates' split (SPECIAL_TEMPLATES,
+# split_special_query), verbatim; template_units is the port's own.
+# nds_tpu_torch/templates/ is a verbatim copy of nds_tpu/templates/, all 99
+# templates.
 """Query-template instantiation: ``queryN.tpl`` + a seeded parameter DSL."""
 from __future__ import annotations
 
@@ -11,6 +14,10 @@ import struct
 
 TEMPLATE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "templates")
+
+# the four templates whose body holds two independent statements
+# (reference nds_gen_query_stream.py:91-103)
+SPECIAL_TEMPLATES = (14, 23, 24, 39)
 
 _DEFINE_RE = re.compile(r"^--\s*define\s+\[(\w+)\]\s*=\s*(.+?)\s*$")
 
@@ -130,3 +137,33 @@ def instantiate(number: int, stream: int, rngseed: int,
         raise ValueError(
             f"query{number}.tpl: unbound parameter [{leftover.group(1)}]")
     return body
+
+
+def available_templates(template_dir: str = TEMPLATE_DIR) -> list[int]:
+    out = []
+    for f in os.listdir(template_dir):
+        m = re.match(r"^query(\d+)\.tpl$", f)
+        if m:
+            out.append(int(m.group(1)))
+    return sorted(out)
+
+
+def split_special_query(query_name: str, sql: str) -> list[tuple[str, str]]:
+    """Split a two-statement special query into _part1/_part2 units."""
+    stmts = [s.strip() for s in sql.split(";") if s.strip()]
+    if len(stmts) <= 1:
+        return [(query_name, sql)]
+    return [(f"{query_name}_part{i + 1}", stmt)
+            for i, stmt in enumerate(stmts)]
+
+
+def template_units(stream: int, rngseed: int,
+                   template_dir: str = TEMPLATE_DIR) -> list[tuple[str, str]]:
+    """Every runnable unit of a stream's templates, in template order, as
+    (name, sql): one per template, two for each of SPECIAL_TEMPLATES."""
+    units = []
+    for number in available_templates(template_dir):
+        sql = instantiate(number, stream, rngseed, template_dir)
+        units += split_special_query(f"query{number}", sql) \
+            if number in SPECIAL_TEMPLATES else [(f"query{number}", sql)]
+    return units

@@ -197,3 +197,33 @@ def test_star_query_on_the_card_matches_the_cpu(dev):
         out[device] = s.sql(sql)
         assert s.last_fallbacks == []
     assert table_mismatches(out["cuda"], out["cpu"]) == []
+
+
+@pytest.fixture(scope="module")
+def sf001(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    from nds_tpu_torch import datagen
+    data = str(tmp_path_factory.mktemp("cuda_units") / "sf001")
+    datagen.generate(data, 0.01, parallel=2)
+    return data
+
+
+@pytest.mark.parametrize("name", ["query47", "query87", "query84"])
+def test_template_units_on_the_card_match_the_cpu(dev, sf001, name):
+    """One unit of each of the device paths that came last: window
+    functions (RANK and AVG over a self-joined CTE), a set operation
+    (EXCEPT) and string concatenation, strict on the card and equal to the
+    port's result on the CPU."""
+    import nds_tpu_torch as nt
+    from nds_tpu_torch import datagen, streams
+    from nds_tpu_torch.validate import table_mismatches
+    sql = dict(streams.template_units(stream=0, rngseed=3))[name]
+    out = {}
+    for device in ("cuda", "cpu"):
+        s = nt.Session(nt.EngineConfig(decimal_physical="i64"),
+                       device=device)
+        datagen.setup_tables(s, sf001)
+        out[device] = s.sql(sql)
+        assert s.last_fallbacks == []
+    assert table_mismatches(out["cuda"], out["cpu"]) == []

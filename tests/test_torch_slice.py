@@ -7,8 +7,9 @@ plain version stands in, with no node falling back to the host. Each
 result is held against nds_tpu's ``backend="jax"`` result (Pallas off;
 the XLA lowering is bit-identical to it) and its ``backend="numpy"``
 result: integer, date and decimal columns bit-identical, float columns to
-rtol 1e-9. Also here: the port imports neither jax nor nds_tpu, and it
-never runs on the CPU unless asked to.
+rtol 1e-9. Also here: the port imports neither jax nor nds_tpu (while
+it runs the star query, a window query and a set operation), and it never
+runs on the CPU unless asked to.
 """
 import os
 import subprocess
@@ -112,6 +113,12 @@ s.register_arrow("fact", fact)
 s.register_arrow("dim", dim)
 t = s.sql(sys.argv[1])
 assert t.num_rows == 17 and not s.last_fallbacks
+# a window function and a set operation on the device path as well
+t = s.sql("SELECT fk, day, RANK() OVER (PARTITION BY fk ORDER BY qty) AS r, "
+          "SUM(qty) OVER (PARTITION BY day) AS q FROM fact")
+assert t.num_rows == 8192 and not s.last_fallbacks
+t = s.sql("SELECT fk FROM fact WHERE qty > 50 INTERSECT SELECT dk FROM dim")
+assert 0 < t.num_rows <= 512 and not s.last_fallbacks
 print("GUARD_OK", sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "nds_tpu")
                          and sys.modules[m] is not None))
