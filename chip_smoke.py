@@ -13,11 +13,22 @@ Phases, one JSON line each:
 3. queries: NDS queries 3, 7, 9, 42, 55 and 96, and the queries of the
    window, set-operation and concatenation paths, 2, 5, 12, 38, 47, 51,
    67 and 87 (stream 0, template seed 3), through
-   Session.sql(backend="torch") on the card, strict (a node that falls
-   back to the host fails the run), cold and warm, held against the
-   port's numpy executor on the same session.
+   Session.sql(backend="torch") on the card, eager (``jit_plans=False``),
+   strict (a node that falls back to the host fails the run), cold and
+   warm, held against the port's numpy executor on the same session.
    The launch counters are zeroed just before and read just after, and
    every kernel must have launched;
+3b. replay: the same queries on the same session through the compiled
+   lifecycle (the default): one more eager warm run, then record,
+   compile+run (the CUDA graph's capture) and three graph replays, every
+   run held against the query phase's oracle results; the modes must
+   follow the lifecycle, a unit may fall back to eager ("nojit") only for
+   a reason the reference's traced program shares (NOJIT_SHARED), and
+   every kernel must have been launched inside a capture. Per query: the
+   walls, the replay's device time by CUDA events around the graph
+   replays and its busy share, the graph pool's growth, peak memory and
+   the kernels each capture launched. Counters zeroed just before, read
+   just after;
 4. spare slot: the first-row-per-group scatter at the largest call that
    queries 38 and 87 made, beside the reference's form of it (every row
    outside the mask on one spare slot), bit-identical;
@@ -27,13 +38,16 @@ Phases, one JSON line each:
    bit-identical against its plain PyTorch version on the card, and timed
    beside the plain version, one PyTorch library call and the least time
    the card's memory rate allows, each on the device alone (``ms``) and
-   with the host's enqueueing (``host_ms``). ``--parent TREE`` (repeatable)
-   also times the kernels of other checkouts on the same inputs, in turns;
+   with the host's enqueueing (``host_ms``); the largest call also
+   captured alone in a CUDA graph, its replays bit-identical to the eager
+   launch and timed (``graph_ms``). ``--parent TREE`` (repeatable) also
+   times the kernels of other checkouts on the same inputs, in turns;
 6. templates: every unit of the 99 NDS templates (103: four templates
    hold two statements) at --templates_sf, generated into the same
-   temporary directory, cold and warm on the card, strict, held against
-   the numpy executor, with the launch counters zeroed just before and
-   read just after.
+   temporary directory, eager cold and warm, then through the compiled
+   lifecycle as in phase 3b, strict, held against the numpy executor,
+   with the launch counters zeroed just before and read just after; the
+   power run both ways (the eager warm walls, the replays' medians).
 
 Then the kernel table as one JSON line and, last, the device line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
@@ -41,6 +55,7 @@ failure raises and exits non-zero; without CUDA the run stops at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -65,6 +80,12 @@ QUERIES = (3, 7, 9, 42, 55, 96, 2, 5, 12, 38, 47, 51, 67, 87)
 #: the queries whose largest first-row scatter the spare-slot phase times
 SPARE_SLOT_QUERIES = (38, 87)
 SEED = 3
+#: graph replays after a unit's record and compile+run runs
+REPLAYS = 3
+#: why a unit may stay eager under replay: the reasons the reference's
+#: traced program raises too (its dictionary would depend on the data)
+NOJIT_SHARED = ("cast to string needs a data-dependent dictionary",
+                "string scalar subquery under trace")
 #: the card the bounds are computed for, and its memory rate (NVIDIA data
 #: sheet), bytes/s
 CARD = "H100 80GB HBM3"
@@ -95,6 +116,7 @@ class Recorder:
         self.largest: dict = {}
         self.calls: dict = {}
         self.orig: dict = {}
+        self.mods: dict = {}
         for name, size, regime in (
                 ("sort_pairs",
                  lambda k, i: int(k.shape[0]) * (k.element_size() + 4),
@@ -108,6 +130,7 @@ class Recorder:
 
     def wrap(self, mod, name, size, regime):
         orig = self.orig[name] = getattr(mod, name)
+        self.mods[name] = mod
 
         def wrapped(*args, **kwargs):
             n = size(*args)
@@ -117,6 +140,12 @@ class Recorder:
                 self.largest[key] = (n, _clone(args), kwargs, _callers())
             return orig(*args, **kwargs)
         setattr(mod, name, wrapped)
+
+    def unwrap(self) -> None:
+        """Put the wrapped functions back (a CUDA graph capture must not
+        copy their inputs: a capture runs no kernel)."""
+        for name, mod in self.mods.items():
+            setattr(mod, name, self.orig[name])
 
     def regimes(self) -> dict:
         """{kernel: [(regime, args, kwargs, callers), ...]}, the largest call
@@ -270,66 +299,168 @@ def oracle_results(session, sqls: list) -> list:
         _FORKED.clear()         # the caller may free the session
 
 
-def run_units(session, ck, units: list, phase: str,
-              recorder=None) -> dict:
-    """Each (name, sql) of `units` cold (loads and uploads included) and
-    warm through Session.sql(backend="torch"), with the launch counters
-    zeroed just before the first and read just after the last; then every
-    result against the numpy executor (oracle_results). One `phase` line
-    per unit; fails after the last line if any unit fell back to the host
-    or disagreed. Sets ``recorder.label`` to each unit's name while it
-    runs. Returns the counter totals."""
+def _sql_run(session, sql: str, jit: bool):
+    """One Session.sql(backend="torch") on the card: (result, wall seconds
+    ending in a synchronise, the session's stats, peak device GiB)."""
     import torch
-    from nds_tpu_torch.validate import table_mismatches
+    session.config.jit_plans = jit
     on_card = session.device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = session.sql(sql, backend="torch")
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    return got, wall, dict(session.last_stats,
+                           fallbacks=list(session.last_fallbacks)), mem
+
+
+def _lifecycle_faults(name: str, stats: list) -> list:
+    """Faults of one unit's compiled runs (their stats, in order): the
+    modes must go record, compile+run (or compiled, when its units were
+    compiled ahead), compiled...; a unit left eager must have a reason
+    the reference shares."""
+    faults = []
+    modes = [st.get("mode") for st in stats]
+    reasons = {st["nojit_reason"] for st in stats if st.get("nojit_reason")}
+    for r in reasons:
+        if not any(ok in r for ok in NOJIT_SHARED):
+            faults.append(f"{name}: nojit for a reason the reference does "
+                          f"not share: {r}")
+    if reasons:
+        return faults
+    if modes[0] != "record" or modes[1] not in ("compile+run", "compiled") \
+            or any(m != "compiled" for m in modes[2:]):
+        faults.append(f"{name}: modes {modes} do not follow the lifecycle")
+    return faults
+
+
+def run_units(session, ck, units: list, phase: str, recorder=None,
+              replay: bool = False, oracle=None) -> dict:
+    """Each (name, sql) of `units` through Session.sql(backend="torch"):
+    eager (jit_plans=False) cold (loads and uploads included) and warm, or
+    warm only when `oracle` is given (another phase ran them cold); with
+    `replay`, then through the compiled lifecycle: record, compile+run and
+    REPLAYS graph replays. The launch counters are zeroed just before the
+    first run and read just after the last; then every result is held
+    against the numpy executor (`oracle`, [(result, seconds)] in unit
+    order, or oracle_results). One `phase` line per unit; fails after the
+    last line if any unit fell back to the host, disagreed, or strayed
+    from the lifecycle. Sets ``recorder.label`` to each unit's name while
+    it runs. Returns (counter totals, the oracle results, the lines)."""
+    from nds_tpu_torch.validate import table_mismatches
     runs, failed = [], []
     ck.reset_launches()                 # the path starts here
     for name, sql in units:
         if recorder is not None:
             recorder.label = name
         before = dict(ck.LAUNCHES)
-        walls = []
-        for _ in range(2):              # cold, warm
-            t0 = time.perf_counter()
-            got = session.sql(sql, backend="torch")
-            if on_card:
-                torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if session.last_fallbacks:
-                failed.append(f"{name}: host fallback "
-                              f"{session.last_fallbacks}")
-        runs.append((got, walls, {k: ck.LAUNCHES[k] - before[k]
-                                  for k in ck.LAUNCHES},
-                     torch.cuda.max_memory_allocated() / 2 ** 30
-                     if on_card else 0.0))
+        eager = [_sql_run(session, sql, False)
+                 for _ in range(1 if oracle is not None else 2)]
+        compiled = [_sql_run(session, sql, True)
+                    for _ in range(2 + REPLAYS)] if replay else []
+        for _, _, st, _ in eager + compiled:
+            if st["fallbacks"]:
+                failed.append(f"{name}: host fallback {st['fallbacks']}")
+        if replay:
+            failed += _lifecycle_faults(name, [r[2] for r in compiled])
+        runs.append((eager, compiled, {k: ck.LAUNCHES[k] - before[k]
+                                       for k in ck.LAUNCHES}))
     totals = dict(ck.LAUNCHES)          # read just after the path
     if recorder is not None:
         recorder.label = None
-    oracle = oracle_results(session, [sql for _, sql in units])
-    for (name, _), (got, walls, launches, mem), (want, oracle_s) in zip(
+    if oracle is None:
+        oracle = oracle_results(session, [sql for _, sql in units])
+    lines = []
+    for (name, _), (eager, compiled, launches), (want, oracle_s) in zip(
             units, runs, oracle):
-        bad = table_mismatches(got, want)
-        if bad:
-            failed.append(f"{name} disagrees with the numpy oracle: {bad}")
-        emit(phase, unit=name, cold_s=walls[0], warm_s=walls[1],
-             oracle_s=oracle_s, rows=got.num_rows, launches=launches,
-             peak_mem_gb=mem)
+        for i, (got, *_rest) in enumerate(eager + compiled):
+            bad = table_mismatches(got, want)
+            if bad:
+                failed.append(f"{name} (run {i}) disagrees with the numpy "
+                              f"oracle: {bad}")
+        line = {"unit": name, "warm_s": eager[-1][1], "oracle_s": oracle_s,
+                "rows": eager[-1][0].num_rows, "launches": launches,
+                "peak_mem_gb": max(r[3] for r in eager + compiled)}
+        if len(eager) == 2:
+            line["cold_s"] = eager[0][1]
+        if compiled:
+            line.update(_replay_fields(compiled))
+        emit(phase, **line)
+        lines.append(line)
     if failed:
         raise SystemExit(f"{phase}: " + "\n".join(failed))
     missing = [k for k, v in totals.items() if v == 0]
     if missing:
         raise SystemExit(f"{phase}: kernels never launched: {missing}")
-    return totals
+    if replay:
+        captured = {k: sum(ln.get("captured_launches", {}).get(k, 0)
+                           for ln in lines) for k in ck.LAUNCHES}
+        missing = [k for k, v in captured.items() if v == 0]
+        if missing:
+            raise SystemExit(f"{phase}: kernels never launched inside a "
+                             f"CUDA graph capture: {missing}")
+    return totals, oracle, lines
 
 
-def phase_queries(session, ck, recorder=None) -> dict:
-    """QUERIES at the session's scale: the main path."""
+def _replay_fields(compiled: list) -> dict:
+    """One unit's compiled-lifecycle figures: the walls of record,
+    compile+run and the replays (median), the replays' device time by
+    CUDA events around each graph replay and its share of their wall, the
+    capture's pool growth and the kernels it launched (a graph replays
+    them without calling their wrappers)."""
+    replays = compiled[2:]
+    replay_s = statistics.median(r[1] for r in replays)
+    graph_ms = statistics.median(r[2].get("graph_ms", 0.0) for r in replays)
+    cap = compiled[1][2]
+    return {"record_s": compiled[0][1], "compile_run_s": compiled[1][1],
+            "capture_s": cap.get("capture_s"), "replay_s": replay_s,
+            "replay_walls_s": [r[1] for r in replays],
+            "graph_ms": graph_ms, "busy_share": graph_ms / 1e3 / replay_s,
+            "pool_growth_gb": cap.get("pool_growth_bytes", 0) / 2 ** 30,
+            "reserved_gb": _reserved_gb(),
+            "modes": [r[2].get("mode") for r in compiled],
+            "unit_modes": [r[2].get("unit_modes") for r in compiled[:2]],
+            "nojit": sorted({r[2]["nojit_reason"] for r in compiled
+                             if r[2].get("nojit_reason")}),
+            "captured_launches": cap.get("captured_launches", {})}
+
+
+def _reserved_gb() -> float:
+    import torch
+    return torch.cuda.memory_reserved() / 2 ** 30 \
+        if torch.cuda.is_available() else 0.0
+
+
+def query_units() -> list:
     from nds_tpu_torch import streams
-    units = [(f"query{q}", streams.instantiate(q, stream=0, rngseed=SEED))
-             for q in QUERIES]
-    totals = run_units(session, ck, units, "query", recorder)
+    return [(f"query{q}", streams.instantiate(q, stream=0, rngseed=SEED))
+            for q in QUERIES]
+
+
+def phase_queries(session, ck, recorder=None):
+    """QUERIES at the session's scale, eager: the main path of the kernel
+    phase's inputs. Returns (counter totals, oracle results)."""
+    totals, oracle, _ = run_units(session, ck, query_units(), "query",
+                                  recorder)
     emit("launches", totals=totals)
-    return totals
+    return totals, oracle
+
+
+def phase_replay(session, ck, oracle) -> dict:
+    """QUERIES through the compiled lifecycle on the query phase's session
+    (its scans resident), against its oracle results. Returns the counter
+    totals with the capture launches summed over the queries."""
+    totals, _, lines = run_units(session, ck, query_units(), "replay",
+                                 replay=True, oracle=oracle)
+    captured = {k: sum(ln["captured_launches"].get(k, 0) for ln in lines)
+                for k in ck.LAUNCHES}
+    emit("replay_launches", totals=totals, captured=captured,
+         eager_warm_s=sum(ln["warm_s"] for ln in lines),
+         replay_s=sum(ln["replay_s"] for ln in lines))
+    return {"totals": totals, "captured": captured}
 
 
 def first_row_one_slot(gid, mask):
@@ -371,12 +502,19 @@ def phase_spare_slot(recorder) -> None:
 def phase_templates(nt, ck, sf: float, tmp: str, device: str = "cuda"):
     """Every unit of every template at `sf`, on a session of its own."""
     from nds_tpu_torch import streams
+    from nds_tpu_torch.engine.torch_backend import compiled
     session = phase_data(nt, sf, tmp, device, name="templates_data")
+    # another data set: no schedule recorded on the other adopts here
+    compiled.clear_shared_programs()
     units = streams.template_units(stream=0, rngseed=SEED)
     t0 = time.perf_counter()
-    totals = run_units(session, ck, units, "template")
+    totals, _, lines = run_units(session, ck, units, "template",
+                                 replay=True)
     emit("templates", sf=sf, units=len(units),
-         seconds=time.perf_counter() - t0, launches=totals)
+         seconds=time.perf_counter() - t0, launches=totals,
+         power_eager_s=sum(ln["warm_s"] for ln in lines),
+         power_replay_s=sum(ln["replay_s"] for ln in lines),
+         nojit={ln["unit"]: ln["nojit"] for ln in lines if ln["nojit"]})
 
 
 def dev_us(e) -> float:
@@ -659,13 +797,42 @@ def _parents(parents: dict, name: str) -> dict:
             if hasattr(mod, name)}
 
 
-def phase_kernels(ck, recorder, launches, device: str = "cuda",
+def graph_timed(kern, args, kwargs) -> dict:
+    """The call captured alone in a CUDA graph (after one launch on the
+    capture stream, which sizes the kernel's scratch): its replays must
+    give the eager launch's bits; ``graph_ms`` times a replay as
+    time_ms times a call."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        want = list(kern(*args, **kwargs))
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        got = list(kern(*args, **kwargs))
+        graph.capture_end()
+        for _ in range(3):
+            graph.replay()
+        stream.synchronize()
+        ok, _ = same_bits(got, want)
+        if not ok:
+            raise SystemExit("a kernel's graph replay differs from its "
+                             "eager launch")
+        dev_ms, host_ms = time_ms(graph.replay)
+    return {"graph_ms": dev_ms, "graph_host_ms": host_ms}
+
+
+def phase_kernels(ck, recorder, launches, replay, device: str = "cuda",
                   parents: dict | None = None) -> list:
     """Each kernel at the largest call of each regime the query phase gave
-    it (the largest of all is the kernel's row), then on the edge cases;
-    every call bit-identical to the plain version. The redesigned kernels
-    are timed on the edge cases too, and beside ``parents``' ({tree:
-    cuda_kernels module of another tree}) when they are given."""
+    it (the largest of all is the kernel's row, also timed as a graph
+    replay), then on the edge cases; every call bit-identical to the plain
+    version. The redesigned kernels are timed on the edge cases too, and
+    beside ``parents``' ({tree: cuda_kernels module of another tree}) when
+    they are given. ``launches`` are the eager query phase's counts;
+    ``replay`` the replay phase's (``captured``: launches made while a
+    graph was captured; a graph's replays call no wrapper and count
+    nothing)."""
     import torch
     dev = torch.device(device)
     parents = parents or {}
@@ -685,6 +852,8 @@ def phase_kernels(ck, recorder, launches, device: str = "cuda",
             if name in REDESIGNED:
                 m["device_parts"] = device_parts(
                     lambda: kern(*args, **kwargs))
+            if i == 0:
+                m.update(graph_timed(kern, args, kwargs))
             emit("kernel_regime", kernel=name, regime=regime,
                  shape=_shape(name, args), callers=callers,
                  bit_identical=True, max_abs_err=err, **m)
@@ -699,6 +868,9 @@ def phase_kernels(ck, recorder, launches, device: str = "cuda",
                     "host_ms": m["host_ms"],
                     "plain_host_ms": m["plain_host_ms"],
                     "library_host_ms": m["library_host_ms"],
+                    "graph_ms": m["graph_ms"],
+                    "replay_launches": replay["totals"][name],
+                    "captured_launches": replay["captured"][name],
                     "shape": _shape(name, args)})
             else:
                 rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"], err)
@@ -767,21 +939,31 @@ def main() -> int:
                       lambda gid, mask: int(gid.shape[0]),
                       lambda gid, mask: recorder.label
                       if recorder.label in spare_labels else None)
-        launches = phase_queries(session, ck, recorder)
+        launches, oracle = phase_queries(session, ck, recorder)
         if args.profile:
             phase_profile(session)
-        del session         # its tables, host and device, are not needed
+        recorder.unwrap()
+        replay = phase_replay(session, ck, oracle)
+        del session, oracle     # their tables, host and device, are done
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_spare_slot(recorder)
         emit("largest_inputs", calls=recorder.calls, **{
             k: {reg: f"{_shape(k, a)} from {callers}"
                 for reg, a, _, callers in v}
             for k, v in recorder.regimes().items()})
-        rows = phase_kernels(ck, recorder, launches, parents=parents)
+        rows = phase_kernels(ck, recorder, launches, replay,
+                             parents=parents)
         phase_templates(nt, ck, args.templates_sf, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
+    # each row's "launches" counts the eager query phase's calls into the
+    # kernel's launch entry; "replay_launches" the replay phase's, and
+    # "captured_launches" those of them made while a CUDA graph was
+    # captured: a graph's replays run the kernel without calling its
+    # wrapper, so they add to no count
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,11 +7,16 @@ executes on the device (``backend="torch"``) or on the host numpy oracle
 "cuda" and raises when CUDA is absent; the CPU runs only when asked for
 (``device="cpu"``), where each CUDA kernel's plain version stands in.
 
+A repeated statement is not parsed or planned again: the executor keeps its
+units by SQL text and takes them through record, compile+run and compiled
+(``last_stats`` says which, see TorchExecutor.run_query).
+
 Not in this slice: out-of-core (morsel-streamed) scans, which raise; the
 result cache, query log, system tables, DML and EXPLAIN ANALYZE.
 """
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Callable, Optional
 
@@ -56,6 +61,10 @@ class Session:
         self._exec_gen = -1
         # plan nodes of the last sql() call that fell back to the host
         self.last_fallbacks: list[str] = []
+        # the last device sql() call's unit stats: mode ("record",
+        # "compile+run", "compiled", "adopted" or "eager"), device_ms,
+        # segments, nojit_reason
+        self.last_stats: dict = {}
 
     def _dec_as_int(self) -> bool:
         return self.config.decimal_physical == "i64"
@@ -149,11 +158,18 @@ class Session:
     def _executor(self):
         """The session-held device executor: its device-resident scans
         persist across queries until a table (re-)registers."""
+        cfg = self.config
         if self._exec is None or self._exec_gen != self._generation:
             from .torch_backend.executor import TorchExecutor
-            self._exec = TorchExecutor(self.load_table, self.device,
-                                       gpu_kernels=self.config.gpu_kernels)
+            self._exec = TorchExecutor(
+                self.load_table, self.device, gpu_kernels=cfg.gpu_kernels,
+                jit_plans=cfg.jit_plans,
+                segment_plan_nodes=cfg.segment_plan_nodes,
+                segment_min_cte_nodes=cfg.segment_min_cte_nodes,
+                segment_cache_entries=cfg.segment_cache_entries,
+                scan_budget_bytes=int(cfg.scan_budget_gb * (1 << 30)))
             self._exec_gen = self._generation
+        self._exec._jit_plans = cfg.jit_plans
         return self._exec
 
     def plan(self, query: str):
@@ -166,19 +182,27 @@ class Session:
         if backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {backend!r} "
                              "(expected 'torch' or 'numpy')")
-        plan = self.plan(query)
         self.last_fallbacks = []
         if backend == "numpy":
-            return Executor(self.load_table).execute(plan)
-        big = sorted({n.table for n in iter_plan_nodes(plan)
-                      if isinstance(n, ScanNode) and self._est_rows.get(
-                          n.table, 0) > self.config.out_of_core_min_rows})
-        if big:
-            raise NotImplementedError(
-                f"scans of {big} exceed out_of_core_min_rows and would "
-                "stream; the port runs in-core only")
+            return Executor(self.load_table).execute(self.plan(query))
+        self.last_stats = {}
+
+        def factory():
+            plan = self.plan(query)
+            big = sorted({n.table for n in iter_plan_nodes(plan)
+                          if isinstance(n, ScanNode) and self._est_rows.get(
+                              n.table, 0) > self.config.out_of_core_min_rows})
+            if big:
+                raise NotImplementedError(
+                    f"scans of {big} exceed out_of_core_min_rows and would "
+                    "stream; the port runs in-core only")
+            return plan
         from .torch_backend.device import to_host
         ex = self._executor()
-        result = to_host(ex.run_query(plan))
+        # units are labelled "<label>/<unit>" in the executor's messages
+        ex.query_label = "q" + hashlib.sha1(query.encode()).hexdigest()[:8]
+        with ex.on_stream():
+            result = to_host(ex.run_query(("sql", query), factory))
         self.last_fallbacks = list(ex.fallback_nodes)
+        self.last_stats = dict(ex.last_stats)
         return result

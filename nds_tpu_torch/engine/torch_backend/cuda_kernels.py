@@ -326,43 +326,45 @@ def seg_reduce_plain(data: torch.Tensor, gid: torch.Tensor,
     ``jax.ops.segment_*``): gid outside [0, num_segments) contributes
     nothing; empty segments hold 0 (sum), the dtype's extreme, or +-inf;
     integer sums wrap in the operand's dtype; float min/max order -0.0
-    below +0.0 and propagate NaN. Float sums accumulate in index order."""
+    below +0.0 and propagate NaN. Float sums accumulate in index order.
+    Rows outside the segments (and, for float min/max, NaN rows on one
+    side) land on a spare slot S that is cut off, so the reduction never
+    waits on the device and a CUDA graph can capture it."""
     S = num_segments
     keep = (gid >= 0) & (gid < S)
-    g = gid[keep].long()
-    d = data[keep]
+    g = torch.where(keep, gid.long(), S)
     dev, dt = data.device, data.dtype
     if op == "sum":
         if dt.is_floating_point:
-            return torch.zeros(S, dtype=dt, device=dev).index_add_(0, g, d)
-        acc = torch.zeros(S, dtype=torch.int64, device=dev)
-        return acc.index_add_(0, g, d.to(torch.int64)).to(dt)
+            return torch.zeros(S + 1, dtype=dt, device=dev) \
+                .index_add_(0, g, data)[:S]
+        acc = torch.zeros(S + 1, dtype=torch.int64, device=dev)
+        return acc.index_add_(0, g, data.to(torch.int64))[:S].to(dt)
     red = "amin" if op == "min" else "amax"
     if not dt.is_floating_point:
-        src = d.to(torch.int64) if dt == torch.bool else d
-        out = torch.full((S,), _identity(dt, op), dtype=src.dtype, device=dev)
-        return out.scatter_reduce_(0, g, src, red).to(dt)
-    nan = torch.isnan(d)
-    key = _float_key(torch.full((S,), _identity(dt, op), dtype=torch.float64,
-                                device=dev))
-    key.scatter_reduce_(0, g[~nan], _float_key(d[~nan]), red)
-    out = _key_float(key, dt)
-    if bool(nan.any()):
-        # the largest NaN bit pattern (as unsigned) of each segment wins
-        if dt == torch.float64:
-            bits = d[nan].view(torch.int64)
-        else:
-            bits = d[nan].view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-        nb = torch.full((S,), _INT64_MIN, dtype=torch.int64, device=dev)
-        nb.scatter_reduce_(0, g[nan], bits ^ _INT64_MIN, "amax")
-        raw = nb ^ _INT64_MIN
-        has = raw != 0
-        if dt == torch.float64:
-            nan_vals = raw.view(torch.float64)
-        else:
-            nan_vals = (raw & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
-        out = torch.where(has, nan_vals, out)
-    return out
+        src = data.to(torch.int64) if dt == torch.bool else data
+        out = torch.full((S + 1,), _identity(dt, op), dtype=src.dtype,
+                         device=dev)
+        return out.scatter_reduce_(0, g, src, red)[:S].to(dt)
+    nan = torch.isnan(data)
+    key = _float_key(torch.full((S + 1,), _identity(dt, op),
+                                dtype=torch.float64, device=dev))
+    key.scatter_reduce_(0, torch.where(nan, S, g), _float_key(data), red)
+    out = _key_float(key[:S], dt)
+    # the largest NaN bit pattern (as unsigned) of each segment wins
+    if dt == torch.float64:
+        bits = data.view(torch.int64)
+    else:
+        bits = data.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    nb = torch.full((S + 1,), _INT64_MIN, dtype=torch.int64, device=dev)
+    nb.scatter_reduce_(0, torch.where(nan, g, S), bits ^ _INT64_MIN, "amax")
+    raw = nb[:S] ^ _INT64_MIN
+    has = raw != 0
+    if dt == torch.float64:
+        nan_vals = raw.view(torch.float64)
+    else:
+        nan_vals = (raw & 0xFFFFFFFF).to(torch.int32).view(torch.float32)
+    return torch.where(has, nan_vals, out)
 
 
 def seg_reduce_multi_plain(operands: list, gid: torch.Tensor,
@@ -380,6 +382,11 @@ def _seg_scratch(dev: torch.device, words: int) -> torch.Tensor:
     key = (dev, torch.cuda.current_stream().cuda_stream)  # as _stream()
     buf = _SEG_SCRATCH.get(key)
     if buf is None or buf.numel() < words:
+        # under a CUDA graph capture the words would come from the graph's
+        # pool and hold another graph's data later: a compiled replay's
+        # first (uncaptured) pass on the capture stream sizes them
+        _require(not torch.cuda.is_current_stream_capturing(),
+                 "seg_reduce_multi scratch must be sized before a capture")
         buf = _SEG_SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
                                               device=dev)
     return buf

@@ -7,11 +7,18 @@ so both engines plan identical shapes. Strings are dictionary codes (int32)
 on the device; dictionaries stay on the host and string compute happens on
 the dictionary (host lookup tables gathered on the device).
 
+Under compiled replay a string concatenation's dictionary is the cross
+product of its parts' (``CrossDict``), and host-to-device constants go
+through the replayed program's ``Uploads``, so that a CUDA graph captures
+no host copy.
+
 Not in this slice: the packed narrow-lane upload layout and encoded
 (codebook) columns of the streamed path.
 """
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Optional
 
@@ -92,7 +99,7 @@ def to_device(table: Table, device, capacity: Optional[int] = None) -> DTable:
     dev = torch.device(device)
 
     def put(arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(arr).to(dev)
+        return upload(arr, dev)
 
     cols = []
     for c in table.columns:
@@ -120,12 +127,140 @@ def to_host(dt: DTable) -> Table:
     for c in dt.cols:
         data = c.data.cpu().numpy()[idx]
         valid = c.valid.cpu().numpy()[idx]
+        dictionary = c.dictionary
+        if isinstance(dictionary, CrossDict):
+            data, dictionary = dictionary.compact(data, valid)
         if c.dtype == "str":
             data = np.where(valid, data, _NULL_CODE).astype(np.int32)
         cols.append(Column(c.dtype, data.astype(phys_np(c.dtype)),
                            None if bool(valid.all()) else valid,
-                           c.dictionary))
+                           dictionary))
     return Table(list(dt.names), cols)
+
+
+# -- compound string dictionaries (compiled replay) ---------------------------
+
+#: the most entries a cross-product dictionary may materialize (the
+#: reference's bound on its traced compound flatten)
+CROSS_DICT_MAX = 1 << 20
+
+
+class CrossDict:
+    """The dictionary of a string concatenation under compiled replay: the
+    mixed-radix cross product of the parts' dictionaries, each with a last
+    slot "" for a NULL part, the last part varying fastest (the reference's
+    ``_flatten_compound_traced``). Row codes are computed on the device, so
+    the dictionary does not depend on the data. It materializes only where
+    a consumer needs its strings (at most CROSS_DICT_MAX entries, as in the
+    reference); the output (``to_host``) joins only the codes it holds."""
+
+    def __init__(self, parts: list):
+        self.parts = [np.concatenate([np.asarray(d, dtype=object),
+                                      np.asarray([""], dtype=object)])
+                      for d in parts]
+        self.size = 1
+        for d in self.parts:
+            self.size *= len(d)
+        self._values = None
+
+    def __len__(self) -> int:
+        return self.size
+
+    def values(self) -> np.ndarray:
+        if self._values is None:
+            if self.size > CROSS_DICT_MAX:
+                raise NotImplementedError(
+                    f"compound string cross dictionary too large "
+                    f"({self.size})")
+            joined = np.asarray([""], dtype=object)
+            for d in self.parts:
+                joined = np.asarray([a + b for a in joined for b in d],
+                                    dtype=object)
+            self._values = joined
+        return self._values
+
+    def compact(self, codes: np.ndarray, valid: np.ndarray):
+        """(codes, dictionary) of host rows: the strings of the codes held,
+        as a sorted dictionary of their distinct values."""
+        uniq, inverse = np.unique(np.where(valid, codes, 0),
+                                  return_inverse=True)
+        joined = np.full(len(uniq), "", dtype=object)
+        rest = uniq.astype(np.int64)
+        for d in reversed(self.parts):
+            joined = d[rest % len(d)] + joined
+            rest = rest // len(d)
+        strs, remap = np.unique(joined.astype(str), return_inverse=True)
+        return remap.astype(np.int32)[inverse.reshape(-1)], \
+            strs.astype(object)
+
+
+def dict_values(dictionary) -> Optional[np.ndarray]:
+    """A column's dictionary as a host object array (a CrossDict
+    materializes)."""
+    if isinstance(dictionary, CrossDict):
+        return dictionary.values()
+    return dictionary
+
+
+# -- host-to-device constants ------------------------------------------------
+
+_tls = threading.local()
+
+
+class Uploads:
+    """The host-to-device constants of one compiled program (lookup tables,
+    IN lists), in the order its replay makes them. The first replay
+    uploads each one (pinned, without waiting on the device) and keeps it;
+    every later replay, the one a CUDA graph captures among them, takes the
+    kept tensor instead, after checking that the host computed the same
+    array at the same point. A capture then holds no host copy."""
+
+    def __init__(self):
+        self.tensors: list = []
+        self.hosts: list = []
+        self.idx: Optional[int] = None      # None: still uploading
+
+    def reuse(self) -> None:
+        self.idx = 0
+
+    def put(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        if self.idx is None:
+            t = torch.from_numpy(arr)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.clone()
+            self.tensors.append(t)
+            self.hosts.append(arr)
+            return t
+        i = self.idx
+        if i >= len(self.hosts) or self.hosts[i].dtype != arr.dtype or \
+                not np.array_equal(self.hosts[i], arr):
+            from .compiled import NotJittable
+            raise NotJittable(f"constant upload {i} differs between replays")
+        self.idx += 1
+        return self.tensors[i]
+
+
+@contextmanager
+def uploads_active(uploads: Optional[Uploads]):
+    """Route every ``upload`` of this thread through `uploads`."""
+    prev = getattr(_tls, "uploads", None)
+    _tls.uploads = uploads
+    try:
+        yield
+    finally:
+        _tls.uploads = prev
+
+
+def upload(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array as a device tensor: through the active replay's
+    Uploads where there is one, else a plain copy."""
+    arr = np.ascontiguousarray(arr)
+    uploads = getattr(_tls, "uploads", None)
+    if uploads is not None:
+        return uploads.put(arr, torch.device(device))
+    return torch.from_numpy(arr).to(device)
 
 
 def string_rank_maps(dictionary: Optional[np.ndarray]
@@ -138,7 +273,7 @@ def string_rank_maps(dictionary: Optional[np.ndarray]
     table, not through argsort position."""
     if dictionary is None or len(dictionary) == 0:
         return np.zeros(1, dtype=np.int32), np.zeros(1, dtype=np.int32)
-    vals = dictionary.astype(str)
+    vals = dict_values(dictionary).astype(str)
     order = np.argsort(vals, kind="stable")
     svals = vals[order]
     dense = np.cumsum(np.concatenate(
@@ -159,7 +294,7 @@ def string_rank_lut(dictionary: Optional[np.ndarray]) -> np.ndarray:
 def lut_gather(codes: torch.Tensor, lut: np.ndarray) -> torch.Tensor:
     """Gather a host lookup table at device codes (codes clamp into the
     table, as the reference's gathers do)."""
-    dlut = torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)
+    dlut = upload(lut, codes.device)
     if dlut.shape[0] == 0:
         return torch.zeros(codes.shape, dtype=dlut.dtype, device=codes.device)
     return dlut[codes.long().clamp(0, dlut.shape[0] - 1)]

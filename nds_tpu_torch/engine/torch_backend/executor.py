@@ -1,20 +1,32 @@
 """Device plan executor: walks a bound plan over DTables (torch tensors).
 
-Counterpart of the eager path of ``nds_tpu/engine/jax_backend/executor.py``
-(``JaxExecutor``): each node runs as torch compute over padded buffers with
-an alive-row mask, and row counts sync to the host only where a capacity is
-chosen (after filters, joins and aggregates). Scanned tables stay resident
-on the device across queries.
+Counterpart of ``nds_tpu/engine/jax_backend/executor.py`` (``JaxExecutor``):
+each node runs as torch compute over padded buffers with an alive-row mask.
+A query's units go through the reference's lifecycle (``run_query``): the
+first run is eager and records every host decision, the capacity schedule
+(row counts sync to the host only where a capacity or a branch is chosen);
+the second replays the plan against that schedule and, on the card,
+captures the replay as a CUDA graph (compiled.CompiledQuery); every later
+run replays the graph. Big plans split at CTE and rollup boundaries into
+units that hand device-resident tables to each other (``_segment_plan``).
+Scanned tables stay resident on the device across queries, within
+``scan_budget_bytes``.
 
-Not in this slice: compiled whole-plan replay, batched programs, CTE
-segmentation and mesh execution. A node the device path does not cover
-raises NotImplementedError and falls back to the numpy host executor for
-that node only (``fallback_nodes`` names it), as in the reference.
+An eager node the device path does not cover raises NotImplementedError
+and falls back to the numpy host executor for that node only
+(``fallback_nodes`` names it), as in the reference; such a unit is never
+replayed. On CUDA the executor runs all its work on a stream of its own,
+the one its graphs are captured on.
+
+Not in this slice: batched programs over stacked parameters, the streamed
+path's per-morsel replay, and mesh execution.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable
+import weakref
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,9 +37,14 @@ from ..executor import load_columns
 from ..plan import (AggregateNode, AggSpec, BCall, BCol, BExpr, DistinctNode,
                     FilterNode, JoinNode, LimitNode, MaterializedNode,
                     PlanNode, ProjectNode, ScanNode, SetOpNode, SortNode,
-                    WindowFunc, WindowNode)
+                    VirtualScanNode, WindowFunc, WindowNode,
+                    deparameterize_plan, iter_plan_nodes, parameterize_plan,
+                    replace_plan_nodes)
+from . import compiled as _cq
 from . import cuda_kernels as _ck
 from . import exprs, kernels
+from .compiled import (NOJIT_ERRORS, CompiledQuery, NotJittable, Recorder,
+                       ReplayMismatch)
 from .device import (DCol, DTable, bucket, phys_dtype, rank_key,
                      string_rank_maps, to_device, to_host, lut_gather)
 
@@ -37,58 +54,693 @@ _F64 = torch.float64
 
 
 class TorchExecutor:
+    """Executes bound plans on the torch backend with per-node host
+    fallback. One instance lives on the Session (scan cache and compiled
+    units persist across the query stream); a replay instance is made per
+    replay, with a replay Recorder, the unit's scans and its parameters."""
+
     def __init__(self, load_table: Callable, device,
-                 gpu_kernels=_ck.VALID_OPS):
+                 gpu_kernels=_ck.VALID_OPS,
+                 recorder: Optional[Recorder] = None,
+                 scan_tables: Optional[dict] = None,
+                 params: Optional[tuple] = None,
+                 jit_plans: bool = True,
+                 segment_plan_nodes: int = 18,
+                 segment_min_cte_nodes: int = 8,
+                 segment_cache_entries: int = 16,
+                 scan_budget_bytes: int = 40 << 30):
         self._load_table = load_table
         self.device = torch.device(device)
-        self._ops = _ck.parse_ops(gpu_kernels)
+        self.gpu_ops = _ck.parse_ops(gpu_kernels)
         self._memo: dict[int, DTable] = {}
-        self._scan_cache: dict[str, DTable] = {}   # device-resident scans
+        # device-resident scans and segment outputs, by key
+        self._scan_cache: dict[str, DTable] = scan_tables \
+            if scan_tables is not None else {}
         self.fallback_nodes: list[str] = []
+        self._rec = recorder
+        self._replay = recorder is not None and recorder.mode == "replay"
+        # hoisted literal values of the execution in flight: python
+        # scalars when eager, 0-d device tensors (parameter slots) under
+        # replay
+        self._params = params
+        self._jit_plans = jit_plans
+        self._plans: dict = {}           # unit key -> schedule entry
+        self._touched_scans: dict[str, None] = {}   # first-touch order
+        self._scan_meta: dict[str, tuple] = {}   # key -> (table, cols, names)
+        self._cur_node = None            # the plan node executing
+        self._last_record_nodes: Optional[list] = None
+        self.last_stats: dict = {}
+        # label of the query in flight ("<query>/<unit>" program labels)
+        self.query_label: str = ""
+        # CTE and rollup segmentation of big plans into units
+        self._seg_plan_nodes = segment_plan_nodes
+        self._seg_min_cte = segment_min_cte_nodes
+        self._seg_cache_entries = segment_cache_entries
+        self._segment_lru: list[str] = []
+        self._pinned_segments: set[str] = set()
+        # device bytes of each resident entry in LRU order; the least
+        # recently used unpinned entries leave past the budget
+        self._scan_budget = scan_budget_bytes
+        self._resident: dict[str, int] = {}
+        # the fingerprint whose shared schedule just mismatched here: the
+        # record that follows must not adopt it again
+        self._fp_block: Optional[str] = None
+        self._stream = None
+        self._pool = None
+
+    # -- the CUDA stream and graph pool ---------------------------------------
+    @property
+    def stream(self):
+        """The executor's CUDA stream: eager runs, captures and replays are
+        serial on it (a capture needs a stream other than the default)."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def on_stream(self):
+        """Context that makes the executor's stream current (nothing on the
+        CPU)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def graph_pool(self):
+        """One memory pool for all this executor's graphs: replays are
+        serial on one stream and every run consumes its outputs (copied to
+        the host, or cloned out of the pool) before the next."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     # -- public --------------------------------------------------------------
-    def run_query(self, plan: PlanNode) -> DTable:
+    def run_query(self, key, plan_factory: Callable[[], PlanNode]) -> DTable:
+        """Session entry point: record -> compile -> replay per unit.
+
+        key: hashable query identity (("sql", text)); None disables the
+        lifecycle (every run eager). The plan factory runs on the first
+        sighting only: the units are kept. Large plans segment at CTE and
+        rollup boundaries (_segment_plan); each segment materializes once
+        as a device-resident table shared by later units and statements.
+        On CUDA the caller converts the result inside ``on_stream()``."""
         self.fallback_nodes = []
+        self.last_stats = {}
+        if not self._jit_plans:
+            key = None          # eager, whatever an earlier run compiled
+        meta_key = ("segmeta", key) if key is not None else None
+        meta = self._plans.get(meta_key) if meta_key is not None else None
+        if meta is None:
+            plan = plan_factory()
+            units = self._segment_plan(plan)
+            if meta_key is not None and self._jit_plans:
+                self._plans[meta_key] = {"units": units}
+        else:
+            units = meta["units"]
+        if len(units) == 1:
+            out = self._run_unit(key, units[0][1])
+            self.last_stats = _unit_totals([self.last_stats],
+                                           self.last_stats)
+            return out
+        seg_ms = 0.0
+        segs_run = 0
+        out = None
+        unit_stats = []
+        if key is not None and self._jit_plans:
+            self._prepare_units(
+                [(key, "root") if sk is None else (key, sk)
+                 for sk, _ in units
+                 if sk is None or sk not in self._scan_cache])
+        # pin this query's segments: binding segment N must never evict
+        # segment M that a later unit still reads
+        self._pinned_segments = {sk for sk, _ in units if sk is not None}
+        try:
+            for seg_key, uplan in units:
+                self.last_stats = {}     # per-unit stats
+                if seg_key is None:
+                    root_key = (key, "root") if key is not None else None
+                    out = self._run_unit(root_key, uplan)
+                elif seg_key in self._scan_cache:
+                    self._touch_segment(seg_key)
+                    continue
+                else:
+                    unit_key = (key, seg_key) if key is not None else None
+                    seg_out = self._run_unit(unit_key, uplan,
+                                             keep_device=True)
+                    self._bind_segment(seg_key, seg_out)
+                    segs_run += 1
+                    seg_ms += self.last_stats.get("device_ms", 0.0)
+                unit_stats.append(self.last_stats)
+        finally:
+            self._pinned_segments = set()
+        root_stats = _unit_totals(unit_stats, self.last_stats)
+        root_stats.update(segments=len(units) - 1, segments_run=segs_run,
+                          seg_device_ms=round(seg_ms, 3))
+        self.last_stats = root_stats
+        return out
+
+    def _prepare_units(self, unit_keys: list) -> None:
+        """Second sighting of a multi-unit query: compile every unit that
+        has a schedule but no program before any of them runs (the
+        reference's precompile_parallel call; serial, and only for the
+        units this run executes). A unit that cannot replay is marked
+        nojit; one whose scans are gone is left to its own run."""
+        for k in unit_keys:
+            ent = self._plans.get(k)
+            if ent is None or ent["cq"] is not None or ent["nojit"]:
+                continue
+            cq = CompiledQuery(ent["plan"], ent["decisions"],
+                               ent["scan_keys"], self,
+                               param_dtypes=ent.get("param_dtypes", ()),
+                               label=ent.get("label", self._unit_label(k)),
+                               decision_nodes=ent.get("decision_nodes"))
+            try:
+                cq.prepare(self._scans_for(ent), ent.get("params", ()))
+            except NOJIT_ERRORS as e:
+                ent["nojit"] = True
+                ent["nojit_reason"] = f"{type(e).__name__}: {e}"
+                continue
+            except ReplayMismatch:
+                continue
+            ent["cq"] = cq
+            self._publish_cq(ent)
+
+    # -- segmentation ---------------------------------------------------------
+    def _segment_plan(self, plan: PlanNode) -> list:
+        """Split a big plan into [(seg_key, unit_plan)...] + [(None, root)]:
+        at CTE boundaries (planner-fingerprinted, shared across statements)
+        and at rollup grouping-set boundaries. Units are in dependency
+        order; a later unit sees earlier outputs as VirtualScanNodes
+        resolved against the segment cache."""
+        if not self._jit_plans or self._seg_plan_nodes <= 0:
+            return [(None, plan)]
+        out = []
+        for seg_key, uplan in self._cte_units(plan):
+            out.extend(self._rollup_units(seg_key, uplan))
+        return out
+
+    def _cte_units(self, plan: PlanNode) -> list:
+        segs = getattr(plan, "cte_segments", None)
+        if not segs:
+            return [(None, plan)]
+        nodes = list(iter_plan_nodes(plan))
+        if len(nodes) < self._seg_plan_nodes:
+            return [(None, plan)]
+        reachable = {id(n) for n in nodes}
+        mapping: dict[int, PlanNode] = {}
+        units: list = []
+        seen_keys: set[str] = set()
+        for fp, node in segs:
+            if id(node) not in reachable:
+                continue
+            if sum(1 for _ in iter_plan_nodes(node)) < self._seg_min_cte:
+                continue
+            seg_key = "seg:" + fp
+            virt = VirtualScanNode(key=seg_key, label="cte",
+                                   out_names=list(node.out_names),
+                                   out_dtypes=list(node.out_dtypes))
+            if seg_key not in seen_keys:
+                seen_keys.add(seg_key)
+                units.append((seg_key,
+                              replace_plan_nodes(node, mapping)
+                              if mapping else node))
+            mapping[id(node)] = virt
+        if not units:
+            return [(None, plan)]
+        units.append((None, replace_plan_nodes(plan, mapping)))
+        return units
+
+    def _rollup_units(self, seg_key, uplan: PlanNode) -> list:
+        """Split big rollup aggregates of one unit into per-level units:
+        [(child_seg, child), (level_seg, level_agg)..., (seg_key,
+        rewritten)]; the rewrite unions the per-level VirtualScans, which
+        is the concat the in-unit rollup performs."""
+        nodes = list(iter_plan_nodes(uplan))
+        if len(nodes) < self._seg_plan_nodes:
+            return [(seg_key, uplan)]
+        units: list = []
+        mapping: dict[int, PlanNode] = {}
+        cands = [n for n in nodes
+                 if isinstance(n, AggregateNode) and n.rollup
+                 and n.rollup_levels is None and len(n.group_exprs) >= 2]
+        # innermost first: a rollup nested in another rollup's child is
+        # rewritten before the outer child unit is cut
+        cands.sort(key=lambda a: sum(1 for _ in iter_plan_nodes(a)))
+        for orig in cands:
+            child_nodes = list(iter_plan_nodes(orig.child))
+            if len(child_nodes) < self._seg_min_cte or \
+                    any(isinstance(m, MaterializedNode) for m in child_nodes):
+                continue
+            child = replace_plan_nodes(orig.child, mapping) if mapping \
+                else orig.child
+            agg = dataclasses.replace(orig, child=child) if child \
+                is not orig.child else orig
+            ckey = "seg:" + _cq.plan_fingerprint(child)
+            virt_child = VirtualScanNode(
+                key=ckey, label="rollup-src",
+                out_names=list(child.out_names),
+                out_dtypes=list(child.out_dtypes))
+            units.append((ckey, child))
+            branches: list[PlanNode] = []
+            for lvl in range(len(agg.group_exprs), -1, -1):
+                lnode = dataclasses.replace(agg, child=virt_child,
+                                            rollup_levels=[lvl])
+                lkey = "seg:" + _cq.plan_fingerprint(lnode)
+                units.append((lkey, lnode))
+                branches.append(VirtualScanNode(
+                    key=lkey, label=f"rollup-lvl{lvl}",
+                    out_names=list(agg.out_names),
+                    out_dtypes=list(agg.out_dtypes)))
+            chain = branches[0]
+            for v in branches[1:]:
+                chain = SetOpNode(op="union", all=True, left=chain, right=v,
+                                  out_names=list(agg.out_names),
+                                  out_dtypes=list(agg.out_dtypes))
+            mapping[id(orig)] = chain     # keyed by the ORIGINAL node id
+        if not mapping:
+            return [(seg_key, uplan)]
+        return units + [(seg_key, replace_plan_nodes(uplan, mapping))]
+
+    def _bind_segment(self, seg_key: str, out: DTable) -> None:
+        """Stash a segment output for downstream units; LRU-bounded."""
+        self._scan_cache[seg_key] = out
+        self._account_resident(seg_key, out)
+        self._touch_segment(seg_key)
+
+    def _touch_segment(self, seg_key: str) -> None:
+        if seg_key in self._segment_lru:
+            self._segment_lru.remove(seg_key)
+        self._segment_lru.append(seg_key)
+        evictable = [k for k in self._segment_lru
+                     if k not in self._pinned_segments]
+        while len(self._segment_lru) > self._seg_cache_entries and evictable:
+            old = evictable.pop(0)
+            self._segment_lru.remove(old)
+            # torch frees the buffers once the last reference is gone
+            self._scan_cache.pop(old, None)
+            self._resident.pop(old, None)
+
+    def _unit_label(self, key) -> str:
+        """"<query>/<unit>" label of a unit (segments keep a short
+        fingerprint)."""
+        base = self.query_label or "query"
+        if isinstance(key, tuple) and len(key) == 2 and \
+                isinstance(key[1], str):
+            if key[1].startswith("seg:"):
+                return f"{base}/{key[1][:12]}"
+            if key[1] == "root":
+                return f"{base}/root"
+        return base
+
+    # -- the unit lifecycle ---------------------------------------------------
+    def _run_unit(self, key, plan: PlanNode,
+                  keep_device: bool = False) -> DTable:
+        """One unit through record -> compile+run -> compiled."""
+        fb0 = len(self.fallback_nodes)
+        ent = self._plans.get(key) if key is not None else None
+        if ent is not None:
+            if ent["nojit"]:
+                self.last_stats["mode"] = "eager"
+                if ent.get("nojit_reason"):
+                    self.last_stats["nojit_reason"] = ent["nojit_reason"]
+                return self._eager_ent(ent)
+            cq = ent["cq"]
+            if cq is None:                          # second sighting
+                cq = CompiledQuery(ent["plan"], ent["decisions"],
+                                   ent["scan_keys"], self,
+                                   param_dtypes=ent.get("param_dtypes", ()),
+                                   label=ent.get("label",
+                                                 self._unit_label(key)),
+                                   decision_nodes=ent.get("decision_nodes"))
+            try:
+                out = self._run_compiled(cq, ent, keep_device)
+            except NOJIT_ERRORS as e:
+                ent["cq"] = None
+                ent["nojit"] = True
+                ent["nojit_reason"] = f"{type(e).__name__}: {e}"
+                self.last_stats["mode"] = "eager"
+                self.last_stats["nojit_reason"] = ent["nojit_reason"]
+                return self._eager_ent(ent)
+            except ReplayMismatch:
+                _cq.strike_shared_program(ent.get("fp"))
+                self._fp_block = ent.get("fp")
+                self._plans.pop(key, None)
+            else:
+                if ent["cq"] is None:
+                    ent["cq"] = cq
+                    self._publish_cq(ent)
+                _cq.absolve_shared_program(ent.get("fp"))
+                return out
+        # first sighting (or invalidated): eager run, recording the schedule
+        fp = None
+        if key is not None and self._jit_plans:
+            pplan, pvalues, pdtypes = parameterize_plan(plan)
+            fp = _cq.shared_fingerprint(pplan, self.gpu_ops)
+            if self._adopt_shared(key, fp, tuple(pvalues), tuple(pdtypes)):
+                out = self._run_unit(key, plan, keep_device)
+                run = self.last_stats.get("mode")
+                if run in ("compile+run", "compiled"):
+                    # (a schedule that did not fit was recorded again)
+                    self.last_stats.update(mode="adopted", adopted_run=run)
+                return out
+        else:       # uncached one-shot: nothing reuses the rewrite
+            pplan, pvalues, pdtypes = plan, [], []
+        self.last_stats["mode"] = "record"
+        out, decisions, scan_keys = self.record_plan(pplan, tuple(pvalues))
+        labels = self._decision_labels(pplan)
+        if labels:
+            rows = _cq.node_rows(decisions, labels,
+                                 [v for _k, v in decisions])
+            if rows:
+                self.last_stats["node_rows"] = rows
+        if key is not None and self._jit_plans:
+            nojit = len(self.fallback_nodes) > fb0
+            ent = {"plan": pplan, "decisions": decisions,
+                   "scan_keys": scan_keys,
+                   "params": tuple(pvalues), "param_dtypes": tuple(pdtypes),
+                   "decision_nodes": labels, "cq": None, "nojit": nojit,
+                   "nojit_reason": "host fallback: " + "; ".join(
+                       self.fallback_nodes[fb0:]) if nojit else None,
+                   "fp": fp, "label": self._unit_label(key)}
+            self._publish_recorded(ent)
+            self._plans[key] = ent
+            self._fp_block = None
+        return out
+
+    def _decision_labels(self, pplan) -> Optional[tuple]:
+        """Per-decision TypeName#k labels of the schedule just recorded;
+        None when no decision has row semantics."""
+        nodes = self._last_record_nodes
+        if not nodes or all(n is None for n in nodes):
+            return None
+        labs = _cq.node_labels(pplan)
+        return tuple(labs.get(id(n)) if n is not None else None
+                     for n in nodes)
+
+    # -- cross-stream program sharing ----------------------------------------
+    def _adopt_shared(self, key, fp, pvalues: tuple, pdtypes: tuple) -> bool:
+        """Install another stream's schedule for `key` (and its program when
+        this executor captured it)."""
+        if fp is None or fp == self._fp_block:
+            return False
+        with _cq._SHARED_LOCK:
+            sh = _cq._SHARED_PROGRAMS.get(fp)
+            if sh is None or sh.get("volatile") or sh.get("nojit") \
+                    or sh.get("param_dtypes") != pdtypes:
+                return False
+            sh["adoptions"] = sh.get("adoptions", 0) + 1
+            ent = {"plan": sh["plan"], "decisions": list(sh["decisions"]),
+                   "scan_keys": sh["scan_keys"], "params": pvalues,
+                   "param_dtypes": pdtypes,
+                   "cq": _cq.shared_program(sh, self),
+                   "decision_nodes": sh.get("decision_nodes"),
+                   "nojit": False, "fp": fp}
+            scan_meta = dict(sh["scan_meta"])
+        for k, v in scan_meta.items():
+            self._scan_meta.setdefault(k, v)
+        self._plans[key] = ent
+        return True
+
+    def _publish_recorded(self, ent) -> None:
+        """Publish a freshly recorded schedule; cap-merge with any previous
+        stream's so the eventual program serves every stream seen so far."""
+        fp = ent.get("fp")
+        if fp is None:
+            return
+        entry = {"plan": ent["plan"], "decisions": list(ent["decisions"]),
+                 "scan_keys": ent["scan_keys"],
+                 "param_dtypes": ent.get("param_dtypes", ()),
+                 "decision_nodes": ent.get("decision_nodes"),
+                 "scan_meta": {k: self._scan_meta[k]
+                               for k in ent["scan_keys"]
+                               if k in self._scan_meta},
+                 "cq": None, "nojit": ent.get("nojit", False)}
+        with _cq._SHARED_LOCK:
+            old = _cq._SHARED_PROGRAMS.get(fp)
+            if old is not None and old.get("volatile"):
+                return   # proven stream-dependent: stays per-stream
+            if old is not None \
+                    and len(old["decisions"]) == len(entry["decisions"]):
+                pairs = list(zip(old["decisions"], entry["decisions"]))
+                if any(k1 != k2 for (k1, _), (k2, _) in pairs):
+                    entry["volatile"] = True
+                elif any(k == "exact" and v1 != v2
+                         for (k, v1), (_, v2) in pairs):
+                    # structure differs per stream: sharing would replay
+                    # the wrong branch
+                    entry["volatile"] = True
+                else:
+                    merged = [(k, max(v1, v2) if k == "cap" else v1)
+                              for (k, v1), (_, v2) in pairs]
+                    cq = _cq.shared_program(old, self)
+                    if merged == old["decisions"] and cq is not None:
+                        ent["decisions"] = list(merged)
+                        ent["cq"] = cq
+                        return          # its program already covers this
+                    entry["decisions"] = merged
+                    ent["decisions"] = list(merged)
+            elif old is not None:
+                entry["volatile"] = True
+            _cq._SHARED_PROGRAMS[fp] = entry
+
+    def _publish_cq(self, ent) -> None:
+        """Publish a compiled program for adoption by other streams."""
+        fp = ent.get("fp")
+        if fp is None or ent.get("cq") is None:
+            return
+        with _cq._SHARED_LOCK:
+            sh = _cq._SHARED_PROGRAMS.get(fp)
+            if sh is not None and not sh.get("volatile") \
+                    and (sh.get("cq") is None or sh["cq"]() is None) \
+                    and sh["decisions"] == ent["decisions"]:
+                sh["cq"] = weakref.ref(ent["cq"])
+                sh["compiles"] = sh.get("compiles", 0) + 1
+
+    # -- record / replay ------------------------------------------------------
+    def record_plan(self, plan: PlanNode, params: tuple = ()):
+        """Eager run that records the capacity schedule; returns (result,
+        decisions, scan_keys), scan_keys in first-touch order (plan
+        traversal order, the same for every stream)."""
+        rec = Recorder("record")
+        self._rec = rec
+        self._touched_scans = {}
+        old_params = self._params
+        self._params = params
+        try:
+            out = self._eager(plan)
+        finally:
+            self._rec = None
+            self._params = old_params
+        self._last_record_nodes = rec.nodes
+        return out, rec.decisions, tuple(self._touched_scans)
+
+    def _run_compiled(self, cq: CompiledQuery, ent,
+                      keep_device: bool = False) -> DTable:
+        return cq.run(self._scans_for(ent), ent.get("params", ()),
+                      stats=self.last_stats, keep_device=keep_device)
+
+    def _eager_ent(self, ent) -> DTable:
+        """Eager-run a cached entry's (parameterized) plan with its values."""
+        old = self._params
+        self._params = ent.get("params", ())
+        try:
+            return self._eager(ent["plan"])
+        finally:
+            self._params = old
+
+    def _eager(self, plan: PlanNode) -> DTable:
         self._memo = {}
         return self.execute(plan)
 
+    # -- resident accounting --------------------------------------------------
+    @staticmethod
+    def _dtable_bytes(t: DTable) -> int:
+        tensors = [t.alive] + [x for c in t.cols for x in (c.data, c.valid)]
+        return sum(x.numel() * x.element_size() for x in tensors)
+
+    def _account_resident(self, key: str, t: DTable,
+                          pinned: Optional[set] = None) -> None:
+        """Track a device-resident entry; evict LRU past the budget.
+        _resident mirrors _scan_cache (stale keys pruned here)."""
+        for k in [k for k in self._resident if k not in self._scan_cache]:
+            del self._resident[k]
+        self._resident.pop(key, None)
+        self._resident[key] = self._dtable_bytes(t)
+        if self._scan_budget <= 0:
+            return
+        pinned = (pinned or set()) | self._pinned_segments
+        total = sum(self._resident.values())
+        for old in list(self._resident):
+            if total <= self._scan_budget:
+                break
+            if old == key or old in pinned:
+                continue
+            total -= self._resident.pop(old)
+            # the buffers free once the last user (a running unit's
+            # memo) drops them
+            self._scan_cache.pop(old, None)
+            if old in self._segment_lru:
+                self._segment_lru.remove(old)
+
+    def _scans_for(self, ent) -> dict:
+        """Device-resident scan tables of a compiled run (uploaded again
+        when evicted; segment outputs must still be resident)."""
+        out = {}
+        for k in ent["scan_keys"]:
+            if k not in self._scan_cache:
+                if k.startswith("seg:"):
+                    raise ReplayMismatch(f"segment output miss: {k}")
+                if k not in self._scan_meta:
+                    raise ReplayMismatch(f"scan meta miss: {k}")
+                table, columns, names = self._scan_meta[k]
+                self._scan_cache[k] = self._load_scan(table, columns, names)
+            out[k] = self._scan_cache[k]
+        pinned = set(ent["scan_keys"])
+        for k in ent["scan_keys"]:
+            self._account_resident(k, out[k], pinned)
+        return out
+
+    def _load_scan(self, table: str, columns, names) -> DTable:
+        t = load_columns(self._load_table, table, columns)
+        index = {n: i for i, n in enumerate(t.names)}
+        cols = [t.columns[index[c]] for c in columns]
+        return to_device(Table(list(names), cols), self.device)
+
     def execute(self, node: PlanNode) -> DTable:
         # install this executor's kernel choice for every kernel below
-        _ck.set_active(self._ops)
+        _ck.set_active(self.gpu_ops)
         key = id(node)
         if key in self._memo:
             return self._memo[key]
+        prev_node = self._cur_node
+        self._cur_node = node
         try:
             result = self._run(node)
         except NotImplementedError as e:
+            if self._replay:
+                raise
             self.fallback_nodes.append(f"{type(node).__name__}: {e}")
             result = self._host_fallback(node)
+        finally:
+            self._cur_node = prev_node
         self._memo[key] = result
         return result
 
-    # -- helpers -------------------------------------------------------------
-    @staticmethod
-    def _decide(scalar) -> int:
-        """Host-sync a device count (a capacity or structural decision)."""
-        return int(scalar)
+    # -- capacity decisions (record / replay) --------------------------------
+    def _check(self, kind: str, value) -> int:
+        """Replay: the next recorded decision, after checking its kind, and
+        the device actual `value` (a tensor, or a callable making one) kept
+        as its check."""
+        rec = self._rec
+        k, v = rec.decisions[rec.idx]
+        rec.idx += 1
+        if k != kind:
+            raise NotJittable(f"decision kind drift ({kind})")
+        if callable(value):
+            value = value() if v else torch.zeros((), dtype=_I64,
+                                                  device=self.device)
+        rec.checks.append(value.to(_I64).reshape(()))
+        return v
 
+    def _decide_cap(self, scalar: torch.Tensor) -> int:
+        """Host-sync a row count for capacity planning; schedule-aware."""
+        rec = self._rec
+        if rec is None:
+            return int(scalar)
+        if rec.mode == "record":
+            v = int(scalar)
+            rec.decisions.append(("cap", v))
+            rec.nodes.append(self._cur_node)
+            return v
+        return self._check("cap", scalar)
+
+    def _decide_exact(self, scalar: torch.Tensor) -> int:
+        """Host-sync a value that selects program structure (must replay
+        equal)."""
+        rec = self._rec
+        if rec is None:
+            return int(scalar)
+        if rec.mode == "record":
+            v = int(scalar)
+            rec.decisions.append(("exact", v))
+            rec.nodes.append(self._cur_node)
+            return v
+        return self._check("exact", scalar)
+
+    def _decide_exact_lazy(self, fn: Callable[[], torch.Tensor]) -> int:
+        """Exact decision whose device scalar is computed lazily: where the
+        recorded value is 0, replay skips the computation and checks a
+        constant (taking the general path is always correct, so an
+        ineligible fast path never pays its eligibility probe in replay)."""
+        rec = self._rec
+        if rec is None:
+            return int(fn())
+        if rec.mode == "record":
+            v = int(fn())
+            rec.decisions.append(("exact", v))
+            rec.nodes.append(None)   # eligibility probe: no row semantics
+            return v
+        return self._check("exact", fn)
+
+    def _decide_branch(self, value: bool) -> bool:
+        """Record/replay a capacity-dependent structural branch: replay
+        takes the recorded side (both sides are correct), and checks a
+        constant equal to it."""
+        rec = self._rec
+        if rec is None:
+            return value
+        if rec.mode == "record":
+            rec.decisions.append(("exact", int(value)))
+            rec.nodes.append(None)   # performance branch: not a row count
+            return value
+        # the check: 1 where the recorded side was taken, else 0
+        return bool(self._check("exact", lambda: torch.ones(
+            (), dtype=_I64, device=self.device)))
+
+    # -- helpers -------------------------------------------------------------
     def _eval(self, expr: BExpr, table: DTable) -> DCol:
-        return exprs.evaluate(expr, table, subquery_eval=self._scalar)
+        return exprs.evaluate(expr, table, subquery_eval=exprs.EvalCtx(
+            subquery=self._scalar, param=self._param, replay=self._replay))
+
+    def _param(self, expr, n: int) -> DCol:
+        if self._params is None:
+            raise NotJittable("parameter slot without bound values")
+        v = self._params[expr.index]
+        if not isinstance(v, torch.Tensor):
+            return exprs.constant(expr.dtype, v, n, self.device)
+        data = v.to(phys_dtype(expr.dtype)).expand(n).contiguous()
+        return DCol(expr.dtype, data,
+                    torch.ones(n, dtype=torch.bool, device=self.device))
 
     def _iota(self, n: int) -> torch.Tensor:
         return torch.arange(n, dtype=_I32, device=self.device)
 
     def _dense_rank(self, key_data: list, key_valid: list, alive):
         """dense_rank with the packed single-key tier when the key domain
-        fits int64 (all keys integer-typed, capacity >= 8192)."""
+        fits int64 (all keys integer-typed): the size cutoff is a recorded
+        branch and the tier probe a lazy exact decision, as in the
+        reference."""
         n = int(alive.shape[0])
-        if key_data and n >= (1 << 13) and all(map(_is_int, key_data)) and \
-                self._decide(kernels.group_tier(key_data, key_valid, alive)):
-            return kernels.dense_rank_packsort(key_data, key_valid, alive)
+        if key_data and all(map(_is_int, key_data)):
+            if self._decide_branch(n >= (1 << 13)) and \
+                    self._decide_exact_lazy(lambda: kernels.group_tier(
+                        key_data, key_valid, alive)):
+                return kernels.dense_rank_packsort(key_data, key_valid, alive)
         return kernels.dense_rank(key_data, key_valid, alive)
 
     def _scalar(self, plan: PlanNode):
-        """Uncorrelated scalar subquery -> (host value, None)."""
+        """Uncorrelated scalar subquery -> (value, validity). Eager: a host
+        value (validity None: from the value). Replay: a device scalar and
+        its device validity; a string one raises, as in the reference (its
+        dictionary would be data-dependent)."""
+        if self._replay:
+            dt = self.execute(plan)
+            col = dt.cols[0]
+            if col.dtype == "str":
+                raise NotJittable("string scalar subquery under trace")
+            perm, cnt = kernels.compaction_perm(dt.alive)
+            first = perm[:1].long()
+            value = col.data.index_select(0, first).reshape(())
+            valid = (cnt > 0) & col.valid.index_select(0, first).reshape(())
+            return value, valid
         t = to_host(self.execute(plan))
         if t.num_rows == 0:
             return None, None
@@ -110,12 +762,29 @@ class TorchExecutor:
                     out_names=list(sub.out_names),
                     out_dtypes=list(sub.out_dtypes))
         host_node = dataclasses.replace(node, **repl) if repl else node
+        if self._params is not None:
+            # the numpy expression engine evaluates literals, not slots
+            host_node = deparameterize_plan(host_node, list(self._params))
+        # expression-embedded subplans can still read segmented CTEs, which
+        # the host executor cannot resolve: materialize them
+        vmap = {}
+        for n in iter_plan_nodes(host_node):
+            if isinstance(n, VirtualScanNode):
+                src = self._scan_cache.get(n.key)
+                if src is None:
+                    raise RuntimeError(f"segment {n.key!r} not materialized")
+                vmap[id(n)] = MaterializedNode(
+                    table=to_host(src), label=n.key,
+                    out_names=list(n.out_names),
+                    out_dtypes=list(n.out_dtypes))
+        if vmap:
+            host_node = replace_plan_nodes(host_node, vmap)
         host = HostExecutor(self._load_table)
         return to_device(host.execute(host_node), self.device)
 
     def _maybe_compact(self, t: DTable) -> DTable:
         count_t = t.count()
-        count = self._decide(count_t)
+        count = self._decide_cap(count_t)
         cap = bucket(count)
         if t.capacity <= 2 * cap:
             return t
@@ -129,6 +798,8 @@ class TorchExecutor:
     def _run(self, node: PlanNode) -> DTable:
         if isinstance(node, MaterializedNode):
             return to_device(node.table, self.device)
+        if isinstance(node, VirtualScanNode):
+            return self._run_virtual(node)
         if isinstance(node, ScanNode):
             return self._run_scan(node)
         if isinstance(node, FilterNode):
@@ -183,24 +854,42 @@ class TorchExecutor:
         # row) lands on the spare slot n of an n + 1 buffer, which no
         # alive row reads
         safe_gid = torch.where(both.alive, gid, n).long()
-        in_left = torch.zeros(n + 1, dtype=torch.bool, device=self.device)
-        in_left[torch.where(is_left, safe_gid, n)] = True
-        in_right = torch.zeros(n + 1, dtype=torch.bool, device=self.device)
-        in_right[torch.where(is_left, n, safe_gid)] = True
+        # (index_fill_: an indexed store of a python scalar copies it from
+        # the host and waits on the device)
+        in_left = torch.zeros(n + 1, dtype=torch.bool, device=self.device) \
+            .index_fill_(0, torch.where(is_left, safe_gid, n), True)
+        in_right = torch.zeros(n + 1, dtype=torch.bool, device=self.device) \
+            .index_fill_(0, torch.where(is_left, n, safe_gid), True)
         keep = in_left & (in_right if node.op == "intersect" else ~in_right)
         first_left = kernels.first_row_per_gid(gid, both.alive & is_left)
         g = gid.long().clamp(0, n)
         alive = both.alive & is_left & keep[g] & (first_left[g] == iota)
         return self._maybe_compact(DTable(names, both.cols, alive))
 
+    def _run_virtual(self, node: VirtualScanNode) -> DTable:
+        """A segment's output, resolved against the segment cache (run_query
+        materializes segments before their consumers)."""
+        self._touched_scans.setdefault(node.key)
+        t = self._scan_cache.get(node.key)
+        if t is None:
+            if self._replay:
+                raise NotJittable(f"segment {node.key!r} missing under trace")
+            raise RuntimeError(      # orchestration bug, never a fallback
+                f"segment {node.key!r} not materialized")
+        return DTable(list(node.out_names), t.cols, t.alive)
+
     def _run_scan(self, node: ScanNode) -> DTable:
         cache_key = node.table + "//" + ",".join(node.columns)
+        self._touched_scans.setdefault(cache_key)
         if cache_key not in self._scan_cache:
-            t = load_columns(self._load_table, node.table, node.columns)
-            index = {n: i for i, n in enumerate(t.names)}
-            cols = [t.columns[index[c]] for c in node.columns]
-            self._scan_cache[cache_key] = to_device(
-                Table(list(node.out_names), cols), self.device)
+            if self._replay:
+                raise NotJittable(f"scan {cache_key!r} missing under trace")
+            self._scan_cache[cache_key] = self._load_scan(
+                node.table, node.columns, node.out_names)
+            self._account_resident(cache_key, self._scan_cache[cache_key],
+                                   set(self._touched_scans))
+        self._scan_meta[cache_key] = (node.table, list(node.columns),
+                                      list(node.out_names))
         cached = self._scan_cache[cache_key]
         return DTable(list(node.out_names), cached.cols, cached.alive)
 
@@ -294,8 +983,8 @@ class TorchExecutor:
             return pieces[0]
         return _concat_dtables(pieces, list(node.out_names))
 
-    @staticmethod
-    def _sorted_agg_eligible(node: AggregateNode, child: DTable) -> bool:
+    def _sorted_agg_eligible(self, node: AggregateNode,
+                             child: DTable) -> bool:
         """The sorted aggregation path: ONE key sort shared by every rollup
         level, within-group scans instead of segment scatters. Grouped
         aggregates of plain functions over fact-scale inputs only."""
@@ -308,7 +997,9 @@ class TorchExecutor:
                 return False
             if s.arg is not None and s.arg.dtype == "str":
                 return False
-        return child.capacity >= (1 << 13)
+        # the capacity cutoff last, after the static gates, so the
+        # recorded branch sits at a fixed place in the schedule
+        return self._decide_branch(child.capacity >= (1 << 13))
 
     def _aggregate_sorted(self, node: AggregateNode, child: DTable,
                           grouping_sets: list) -> DTable:
@@ -320,8 +1011,10 @@ class TorchExecutor:
         arg_cols = [None if s.arg is None else self._eval(s.arg, child)
                     for s in node.aggs]
         int_keys = all(map(_is_int, keys))
-        tier = int_keys and self._decide(
-            kernels.group_tier(keys, kvalids, alive))
+        tier = self._decide_exact_lazy(
+            lambda: kernels.group_tier(keys, kvalids, alive)) if int_keys \
+            else self._decide_exact(torch.zeros((), dtype=_I32,
+                                                device=self.device))
 
         # ONE sort: keys (packed when possible) + agg args as payload,
         # deduplicated by expression so SUM(x)/AVG(x) carry x once
@@ -392,7 +1085,9 @@ class TorchExecutor:
             new_group = level_new_group(k)
             gid_sorted = kernels._cumsum_i32(new_group) - 1
             num_groups_t = torch.where(alive_sorted, gid_sorted, -1).max() + 1
-            cap_out = bucket(max(self._decide(num_groups_t), 1))
+            # (an adopted schedule of a larger data set may plan more
+            # groups than the input has rows; the reference fails there)
+            cap_out = min(bucket(max(self._decide_cap(num_groups_t), 1)), n)
             is_end = kernels.group_ends(new_group, alive_sorted)
             end_perm, _ = kernels.compaction_perm(is_end)
             sel = end_perm[:cap_out].long()
@@ -481,7 +1176,7 @@ class TorchExecutor:
         gid, num_groups_t = self._dense_rank(
             [rank_key(c) for c in active], [c.valid for c in active],
             child.alive)
-        num_groups = self._decide(num_groups_t)
+        num_groups = self._decide_cap(num_groups_t)
         if not active:
             # a global aggregate (incl. a rollup's grand-total grouping set)
             # over empty input still yields one row
@@ -632,7 +1327,7 @@ class TorchExecutor:
             if kind == "semi":
                 alive = left.alive & matched
             elif node.null_aware:
-                build_has_null = bool(self._decide(
+                build_has_null = bool(self._decide_exact(
                     (right.alive & ~rvalid).any()))
                 alive = torch.zeros(lcap, dtype=torch.bool,
                                     device=self.device) if build_has_null \
@@ -667,10 +1362,9 @@ class TorchExecutor:
                                       names=list(node.out_names),
                                       right_side=True)]
         if kind == "full":
-            matched_right = torch.zeros(rcap + 1, dtype=torch.bool,
-                                        device=self.device)
-            matched_right[torch.where(inner.alive, right_rows,
-                                      rcap).long()] = True
+            matched_right = torch.zeros(
+                rcap + 1, dtype=torch.bool, device=self.device).index_fill_(
+                    0, torch.where(inner.alive, right_rows, rcap).long(), True)
             unmatched_r = right.alive & ~matched_right[:rcap]
             pieces.append(_null_extend(right, left, unmatched_r,
                                        names=list(node.out_names),
@@ -702,18 +1396,26 @@ class TorchExecutor:
             return None    # float keys: no address arithmetic
         limit = min(4 * rcap, 1 << 24)
         info = torch.iinfo(rd.dtype)
-        rmin = torch.where(r_ok, rd, info.max).min()
-        rmax = torch.where(r_ok, rd, info.min).max()
-        cnt_r = r_ok.sum()
-        span_ok = (rmax - rmin) < limit
-        lut_idx = torch.clamp(rd - rmin, 0, limit - 1)
-        scatter_idx = torch.where(r_ok, lut_idx, limit).long()
-        hist = torch.zeros(limit + 1, dtype=_I32, device=self.device)
-        hist.index_add_(0, scatter_idx, torch.ones_like(scatter_idx,
-                                                        dtype=_I32))
-        unique = hist[:limit].max() <= 1
-        if not self._decide(span_ok & unique & (cnt_r > 0)):
+        state: dict = {}
+
+        def probe() -> torch.Tensor:
+            rmin = torch.where(r_ok, rd, info.max).min()
+            rmax = torch.where(r_ok, rd, info.min).max()
+            cnt_r = r_ok.sum()
+            span_ok = (rmax - rmin) < limit
+            lut_idx = torch.clamp(rd - rmin, 0, limit - 1)
+            scatter_idx = torch.where(r_ok, lut_idx, limit).long()
+            hist = torch.zeros(limit + 1, dtype=_I32, device=self.device)
+            hist.index_add_(0, scatter_idx,
+                            torch.ones_like(scatter_idx, dtype=_I32))
+            unique = hist[:limit].max() <= 1
+            state.update(rmin=rmin, scatter_idx=scatter_idx)
+            return span_ok & unique & (cnt_r > 0)
+
+        # replay computes the probe only where the record pass took the path
+        if not self._decide_exact_lazy(probe):
             return None
+        rmin, scatter_idx = state["rmin"], state["scatter_idx"]
         lut = torch.full((limit + 1,), -1, dtype=_I32, device=self.device)
         lut[scatter_idx] = self._iota(rcap)
         lut = lut[:limit]
@@ -728,7 +1430,7 @@ class TorchExecutor:
             if kind == "semi":
                 alive = left.alive & matched
             elif node.null_aware:
-                build_has_null = bool(self._decide(
+                build_has_null = bool(self._decide_exact(
                     (right.alive & ~rvalid).any()))
                 alive = torch.zeros(lcap, dtype=torch.bool,
                                     device=self.device) if build_has_null \
@@ -766,7 +1468,7 @@ class TorchExecutor:
                         lo, cnt, perm_r, residual=None):
         """Materialize matched pairs; returns (combined, left_idx,
         right_rows), all padded to the planned output capacity."""
-        total = self._decide(cnt.to(_I64).sum())
+        total = self._decide_cap(cnt.to(_I64).sum())
         cap_out = bucket(max(total, 1))
         left_idx, build_pos, alive_out = kernels.expand_join(
             lo, cnt, left.alive, cap_out)
@@ -777,6 +1479,27 @@ class TorchExecutor:
         out = DTable(self._combined_names(node, len(cols)), cols, alive_out)
         out = self._apply_residual(residual, out)
         return out, left_idx, right_rows
+
+
+def _unit_totals(unit_stats: list, root: dict) -> dict:
+    """The root unit's stats, with every unit run's mode (``unit_modes``),
+    nojit reasons, and capture and graph figures summed over the units."""
+    out = dict(root)
+    out["unit_modes"] = [st.get("mode") for st in unit_stats]
+    reasons = [st["nojit_reason"] for st in unit_stats
+               if st.get("nojit_reason")]
+    if reasons:
+        out["nojit_reason"] = "; ".join(reasons)
+    for k in ("graph_ms", "capture_s", "pool_growth_bytes"):
+        if any(k in st for st in unit_stats):
+            out[k] = sum(st.get(k, 0) for st in unit_stats)
+    launches: dict = {}
+    for st in unit_stats:
+        for name, n in st.get("captured_launches", {}).items():
+            launches[name] = launches.get(name, 0) + n
+    if launches:
+        out["captured_launches"] = launches
+    return out
 
 
 def _is_int(t: torch.Tensor) -> bool:

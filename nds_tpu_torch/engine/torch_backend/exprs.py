@@ -6,8 +6,13 @@ work never touches the device: predicates, substrings and parses are
 computed once over the host dictionary and become lookup tables that the
 device gathers at the row codes.
 
-Raises NotImplementedError for host-only cases (parameter slots); the
-executor falls back to the numpy backend for that plan node.
+Under compiled replay (``EvalCtx.replay``) nothing here reads device data
+back: hoisted literals (BParam) and scalar subqueries are device scalars,
+CONCAT takes a dictionary that does not depend on the data (device.CrossDict),
+and a cast to string, whose dictionary does, raises.
+
+Raises NotImplementedError for host-only cases; the eager executor falls
+back to the numpy backend for that plan node.
 """
 from __future__ import annotations
 
@@ -20,10 +25,29 @@ import torch
 
 from ..column import dec_scale, is_dec
 from ..exprs import _scaled_in_values, _sql_str
-from ..plan import BCall, BCol, BExpr, BLit, BScalarSubquery
-from .device import DCol, DTable, lut_gather, phys_dtype, string_rank_lut
+from ..plan import BCall, BCol, BExpr, BLit, BParam, BScalarSubquery
+from .device import (CrossDict, DCol, DTable, dict_values, lut_gather,
+                     phys_dtype, string_rank_lut, upload)
 
 SubqueryEval = Callable[[object], object]
+
+
+class EvalCtx:
+    """Evaluation callbacks, passed in the `subquery_eval` position:
+    `subquery` resolves BScalarSubquery plans to (value, validity),
+    `param` resolves BParam slots to columns, and `replay` marks compiled
+    replay (no device data may come back to the host)."""
+    __slots__ = ("subquery", "param", "replay")
+
+    def __init__(self, subquery=None, param=None, replay: bool = False):
+        self.subquery = subquery
+        self.param = param
+        self.replay = replay
+
+
+def _replay(sq) -> bool:
+    return isinstance(sq, EvalCtx) and sq.replay
+
 
 _F64 = torch.float64
 
@@ -36,10 +60,25 @@ def evaluate(expr: BExpr, table: DTable,
         return table.cols[expr.index]
     if isinstance(expr, BLit):
         return constant(expr.dtype, expr.value, n, dev)
+    if isinstance(expr, BParam):
+        param = subquery_eval.param \
+            if isinstance(subquery_eval, EvalCtx) else None
+        if param is None:
+            raise RuntimeError("parameter slot encountered without values")
+        return param(expr, n)
     if isinstance(expr, BScalarSubquery):
-        if subquery_eval is None:
+        sq = subquery_eval.subquery \
+            if isinstance(subquery_eval, EvalCtx) else subquery_eval
+        if sq is None:
             raise RuntimeError("scalar subquery encountered without evaluator")
-        value, _ = subquery_eval(expr.plan)
+        value, valid = sq(expr.plan)
+        if isinstance(valid, torch.Tensor):
+            # compiled replay: a device scalar and its validity, broadcast
+            pd = phys_dtype(expr.dtype)
+            data = torch.where(valid, value.to(pd), torch.zeros((), dtype=pd,
+                                                               device=dev))
+            return DCol(expr.dtype, data.expand(n).contiguous(),
+                        valid.expand(n).contiguous())
         return constant(expr.dtype, value, n, dev)
     if isinstance(expr, BCall):
         handler = _HANDLERS.get(expr.op)
@@ -86,7 +125,7 @@ def _promote(a: torch.Tensor, b: torch.Tensor):
 # -- string dictionary helpers (host side) -----------------------------------
 
 def _dict(c: DCol) -> np.ndarray:
-    return c.dictionary if c.dictionary is not None \
+    return dict_values(c.dictionary) if c.dictionary is not None \
         else np.empty(0, dtype=object)
 
 
@@ -264,6 +303,7 @@ def _in_list(expr: BCall, table: DTable, sq) -> DCol:
     values = expr.extra
     has_null = any(v is None for v in values)
     dev = a.data.device
+    params = [v for v in values if isinstance(v, BParam)]
     if a.dtype == "str":
         d = _dict(a)
         vset = {v for v in values if v is not None}
@@ -273,21 +313,39 @@ def _in_list(expr: BCall, table: DTable, sq) -> DCol:
     else:
         if is_dec(a.dtype):
             vals = _scaled_in_values(values, dec_scale(a.dtype))
-            arr = torch.tensor(vals, dtype=phys_dtype(a.dtype), device=dev)
+            arr = upload(np.asarray(vals, dtype=np.int64), dev)
         else:
-            vals = [v for v in values if v is not None]
+            vals = [v for v in values
+                    if v is not None and not isinstance(v, BParam)]
             dt = torch.float64 if any(isinstance(v, float) for v in vals) \
                 else torch.int64
-            arr = torch.tensor(vals, dtype=dt, device=dev) if vals else None
+            arr = upload(np.asarray(vals, dtype=np.float64 if dt == _F64
+                                    else np.int64), dev) if vals else None
+            if params:
+                # hoisted int/date items: device scalars of their slots
+                param = sq.param if isinstance(sq, EvalCtx) else None
+                if param is None:
+                    raise NotImplementedError("in_list params without values")
+                pvals = torch.cat([param(v, 1).data.to(dt) for v in params])
+                arr = pvals if arr is None else torch.cat([arr, pvals])
+                vals = vals + params
         if not vals:
             out = torch.zeros(len(a), dtype=torch.bool, device=dev)
         else:
             da, arr = _promote(a.data, arr)
-            out = torch.isin(da, arr)
+            out = _member(da, arr)
     valid = a.valid
     if has_null:
         valid = valid & out
     return DCol("bool", out & valid, valid)
+
+
+def _member(x: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """x[i] in values, by a binary search in the sorted values (torch.isin
+    may wait on the device to size a unique)."""
+    sv = torch.sort(values).values
+    pos = torch.searchsorted(sv, x).clamp_(max=sv.shape[0] - 1)
+    return sv[pos] == x
 
 
 def _like_to_regex(pattern: str) -> re.Pattern:
@@ -313,9 +371,10 @@ def _like(expr: BCall, table: DTable, sq) -> DCol:
 
 def _case(expr: BCall, table: DTable, sq) -> DCol:
     pairs = expr.args[:-1]
+    else_col = evaluate(expr.args[-1], table, sq)   # first, as the reference
     branch_cols = [evaluate(pairs[i + 1], table, sq)
                    for i in range(0, len(pairs), 2)]
-    branch_cols.append(evaluate(expr.args[-1], table, sq))
+    branch_cols.append(else_col)
     dictionary = None
     if expr.dtype == "str":
         dictionary, datas = merge_branch_strings(branch_cols)
@@ -383,6 +442,11 @@ def _cast(expr: BCall, table: DTable, sq) -> DCol:
     if a.dtype == "str":
         return _cast_from_str(a, target)
     if target == "str":
+        if _replay(sq):
+            # as the reference's traced cast: the output dictionary holds
+            # the distinct values, which the host cannot read under replay
+            raise NotImplementedError(
+                "cast to string needs a data-dependent dictionary (host)")
         return _cast_to_str(a)
     if is_dec(target):
         s = dec_scale(target)
@@ -483,6 +547,8 @@ def _concat(expr: BCall, table: DTable, sq) -> DCol:
     codes (a null part contributes "") are joined on the host, and the
     rows gather their code in the sorted dictionary of the results. The
     result is NULL where any part is."""
+    if _replay(sq):
+        return _concat_cross(_concat_parts(expr, table, sq))
     cols = _args(expr, table, sq)
     if any(c.dtype != "str" for c in cols):
         raise NotImplementedError("device concat of non-string")
@@ -502,6 +568,41 @@ def _concat(expr: BCall, table: DTable, sq) -> DCol:
     uniq, remap = np.unique(joined.astype(str), return_inverse=True)
     return DCol("str", lut_gather(inverse, remap.astype(np.int32)), valid,
                 uniq.astype(object))
+
+
+def _concat_parts(expr: BCall, table: DTable, sq) -> list[DCol]:
+    """The leaf part columns of a (nested) concatenation: the reference's
+    compound column keeps its parts flat."""
+    parts: list[DCol] = []
+    for arg in expr.args:
+        if isinstance(arg, BCall) and arg.op == "concat":
+            parts.extend(_concat_parts(arg, table, sq))
+            continue
+        c = evaluate(arg, table, sq)
+        if c.dtype != "str":
+            raise NotImplementedError("device concat of non-string")
+        parts.append(c)
+    return parts
+
+
+def _concat_cross(parts: list[DCol]) -> DCol:
+    """Concatenation under compiled replay: each row's mixed-radix code in
+    the cross product of the parts' dictionaries (device.CrossDict), the
+    slot past a part's dictionary standing for a NULL part; NULL where any
+    part is."""
+    cross = CrossDict([_dict(p) for p in parts])
+    if cross.size >= 1 << 31:
+        raise NotImplementedError(
+            f"compound string cross dictionary too large ({cross.size})")
+    code = torch.zeros_like(parts[0].data, dtype=torch.int32)
+    valid = parts[0].valid
+    for p, d in zip(parts, cross.parts):
+        n = len(d)
+        eff = torch.where(p.valid & (p.data >= 0),
+                          p.data.clamp(0, max(n - 2, 0)), n - 1)
+        code = code * n + eff.to(torch.int32)
+        valid = valid & p.valid
+    return DCol("str", code, valid, cross)
 
 
 def _abs(expr: BCall, table: DTable, sq) -> DCol:

@@ -195,8 +195,7 @@ def _key_ranges(key_data: list, key_valid: list, alive: torch.Tensor):
         info = _iinfo(d.dtype)
         m = torch.where(contrib, d, info.max).min()
         mx = torch.where(contrib, d, info.min).max()
-        span = torch.where(cnt > 0, mx - m,
-                           torch.tensor(-1, dtype=d.dtype, device=d.device))
+        span = torch.where(cnt > 0, mx - m, torch.full_like(mx, -1))
         ok = (cnt == 0) | (span >= 0)          # wrapped diff => negative
         span = torch.clamp(span, min=-1)
         norm = torch.where(v, torch.minimum(torch.clamp(d - m, min=0), span),

@@ -9,8 +9,10 @@ Run on a machine with an NVIDIA card:
 does not need.)
 
 Each kernel builds from nds_tpu_torch/csrc/ and must be bit-identical to
-its plain version on the same CUDA tensors, and the star query must give
-on the card what it gives on the CPU.
+its plain version on the same CUDA tensors, also when a CUDA graph
+captured it and replays it, and the star query must give on the card what
+it gives on the CPU. A query's units on the card go record, compile+run
+(the capture) and compiled (graph replays).
 """
 import numpy as np
 import pytest
@@ -227,3 +229,112 @@ def test_template_units_on_the_card_match_the_cpu(dev, sf001, name):
         out[device] = s.sql(sql)
         assert s.last_fallbacks == []
     assert table_mismatches(out["cuda"], out["cpu"]) == []
+
+
+def _kernel_calls(dev):
+    """One call of each kernel, at shapes that take it: (name, fn)."""
+    g = torch.Generator().manual_seed(11)
+    n = 50_001
+    key = torch.randint(-9, 9, (n,), generator=g).to(dev)
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    gid = torch.randint(-2, 40, (n,), generator=g, dtype=torch.int32).to(dev)
+    ops = [(d.to(dev), op) for d, op in _seg_operands(g, n)]
+    srcs = [torch.randint(-99, 99, (n,), generator=g).to(dt).to(dev)
+            for dt in (torch.int8, torch.int32, torch.int64)]
+    idx = torch.randint(-n, n, (n,), generator=g, dtype=torch.int32).to(dev)
+    return [
+        ("sort_pairs", lambda: ck.sort_pairs(key, iota, idx_ascending=True),
+         lambda: ck.sort_pairs_plain(key, iota)),
+        ("seg_reduce_multi", lambda: ck.seg_reduce_multi(ops, gid, 37),
+         lambda: ck.seg_reduce_multi_plain(ops, gid, 37)),
+        ("take_many", lambda: ck.take_many(srcs, idx),
+         lambda: [ck.take_plain(x, idx) for x in srcs])]
+
+
+def _capture(fn, stream, pool=None):
+    """fn captured in a CUDA graph on `stream`, after one launch there
+    (which sizes the kernel's scratch): (graph, its static outputs)."""
+    with torch.cuda.stream(stream):
+        fn()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=pool)
+        out = list(fn())
+        graph.capture_end()
+    return graph, out
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+def test_kernel_replayed_in_a_graph_matches_eager_and_plain(dev, which):
+    name, fn, plain = _kernel_calls(dev)[which]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    before = ck.LAUNCHES[name]
+    eager = list(fn())
+    per_call = ck.LAUNCHES[name] - before
+    graph, out = _capture(fn, stream)
+    # a first call on the stream and the capture; replays call no wrapper
+    assert ck.LAUNCHES[name] == before + 3 * per_call
+    for _ in range(3):
+        with torch.cuda.stream(stream):
+            graph.replay()
+        stream.synchronize()
+        _same(out, eager)
+        _same(out, list(plain()))
+    assert ck.LAUNCHES[name] == before + 3 * per_call
+
+
+def test_seg_reduce_multi_scratch_is_clear_after_graph_replays(dev):
+    _, fn, plain = _kernel_calls(dev)[1]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph, out = _capture(fn, stream)
+    for _ in range(5):
+        with torch.cuda.stream(stream):
+            graph.replay()
+    stream.synchronize()
+    _same(out, list(plain()))
+    words = [w for (_, st), w in ck._SEG_SCRATCH.items()
+             if st == stream.cuda_stream]
+    assert len(words) == 1 and int(torch.count_nonzero(words[0])) == 0
+
+
+def test_graphs_sharing_a_pool_replay_alternately(dev):
+    """Two graphs in one memory pool, replayed A, B, A, B on one stream,
+    each output consumed (copied) before the next replay: the eager bits
+    every time."""
+    calls = _kernel_calls(dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for _, fn, plain in (calls[0], calls[2]):
+        graphs.append((_capture(fn, stream, pool), list(plain())))
+    for (graph, out), want in graphs + graphs:
+        with torch.cuda.stream(stream):
+            graph.replay()
+            got = [t.clone() for t in out]
+        stream.synchronize()
+        _same(got, want)
+
+
+@pytest.mark.parametrize("name", ["query3", "query5", "query67", "query87"])
+def test_session_on_the_card_follows_the_lifecycle(dev, sf001, name):
+    """record, then compile+run (a query of several units compiles them
+    all before its second run: compiled), then compiled: graph replays,
+    each equal to the numpy oracle."""
+    import nds_tpu_torch as nt
+    from nds_tpu_torch import datagen, streams
+    from nds_tpu_torch.validate import table_mismatches
+    sql = dict(streams.template_units(stream=0, rngseed=3))[name]
+    s = nt.Session(nt.EngineConfig(decimal_physical="i64"), device="cuda")
+    datagen.setup_tables(s, sf001)
+    want = s.sql(sql, backend="numpy")
+    modes = []
+    for _ in range(4):
+        got = s.sql(sql)
+        assert s.last_fallbacks == []
+        assert table_mismatches(got, want) == []
+        modes.append(s.last_stats["mode"])
+    assert modes[0] == "record" and modes[1] in ("compile+run", "compiled")
+    assert modes[2:] == ["compiled", "compiled"]
+    assert s.last_stats["graph_ms"] > 0

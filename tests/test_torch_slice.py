@@ -113,6 +113,10 @@ s.register_arrow("fact", fact)
 s.register_arrow("dim", dim)
 t = s.sql(sys.argv[1])
 assert t.num_rows == 17 and not s.last_fallbacks
+# the compiled path too: compile+run, then a replay
+for mode in ("compile+run", "compiled"):
+    assert s.sql(sys.argv[1]).to_pylist() == t.to_pylist()
+    assert s.last_stats["mode"] == mode and not s.last_fallbacks
 # a window function and a set operation on the device path as well
 t = s.sql("SELECT fk, day, RANK() OVER (PARTITION BY fk ORDER BY qty) AS r, "
           "SUM(qty) OVER (PARTITION BY day) AS q FROM fact")
