@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of nds_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--sf 10] [--templates_sf 1] [--profile]
+    python3 chip_smoke.py [--sf 10] [--templates_sf 0.5] [--profile]
                           [--parent TREE]
 
 Phases, one JSON line each:
@@ -29,6 +29,27 @@ Phases, one JSON line each:
    replays and its busy share, the graph pool's growth, peak memory and
    the kernels each capture launched. Counters zeroed just before, read
    just after;
+3c. transcode: store_sales, catalog_sales and inventory from the CSV to
+   Parquet (pyarrow on the host) in the temporary directory, registered
+   with register_parquet on a new session (their row counts then come
+   from the Parquet metadata; the other tables stay CSV);
+3d. stream_default: at the reference's defaults (48M-row threshold,
+   4,194,304-row morsels) the SF10 units that scan inventory (133.1M
+   rows): q21, q22, q37, q72 and q82 must stream it, 32 morsels a pass,
+   and q39's two parts (no streaming job) run in-core over the whole
+   table; each unit cold and three times warm, held against the numpy
+   executor, which runs in two forked workers beside this phase and the
+   ones after (q72's alone takes about 6 minutes), the checks at the end;
+3e. stream_lowered: phase query's queries with the threshold at 10M rows:
+   all but 12, 38 and 87 stream store_sales (7 morsels) or catalog_sales
+   (4), cold and once warm, held against phase query's oracle
+   results and phase replay's in-core results. Both streamed phases fail
+   on a fallback, a prefetch error, a query expected to stream that ran
+   in-core (or the reverse), and a graph capture on a warm pass, and
+   report per unit the walls, morsels, bytes uploaded and the upload
+   rate, the share of staging hidden under the runs, the host's decode
+   and finalize, the device's busy share, re-records, captures and peak
+   memory. Launch counters zeroed just before each, read just after;
 4. spare slot: the first-row-per-group scatter at the largest call that
    queries 38 and 87 made, beside the reference's form of it (every row
    outside the mask on one spare slot), bit-identical;
@@ -43,13 +64,17 @@ Phases, one JSON line each:
    launch and timed (``graph_ms``). ``--parent TREE`` (repeatable) also
    times the kernels of other checkouts on the same inputs, in turns;
 6. templates: every unit of the 99 NDS templates (103: four templates
-   hold two statements) at --templates_sf, generated into the same
-   temporary directory, eager cold and warm, then through the compiled
-   lifecycle as in phase 3b, strict, held against the numpy executor,
-   with the launch counters zeroed just before and read just after; the
-   power run both ways (the eager warm walls, the replays' medians).
+   hold two statements) at --templates_sf (0.5 by default, to keep the
+   smoke near 15 minutes beside the streamed phases), generated into the
+   same temporary directory, eager cold and warm, then through the
+   compiled lifecycle as in phase 3b, strict, held against the numpy
+   executor, with the launch counters zeroed just before and read just
+   after; the power run both ways (the eager warm walls, the replays'
+   medians).
 
-Then the kernel table as one JSON line and, last, the device line. Any
+Then the deferred oracle checks of phase stream_default, the kernel table
+as one JSON line (a row's launches: phase query's and the streamed
+phases') and, last, the device line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
 """
 from __future__ import annotations
@@ -92,8 +117,13 @@ CARD = "H100 80GB HBM3"
 MEM_RATE = 3.35e12
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the smoke started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _T0}), flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +368,8 @@ def _lifecycle_faults(name: str, stats: list) -> list:
 
 
 def run_units(session, ck, units: list, phase: str, recorder=None,
-              replay: bool = False, oracle=None) -> dict:
+              replay: bool = False, oracle=None,
+              results: dict | None = None) -> dict:
     """Each (name, sql) of `units` through Session.sql(backend="torch"):
     eager (jit_plans=False) cold (loads and uploads included) and warm, or
     warm only when `oracle` is given (another phase ran them cold); with
@@ -349,7 +380,8 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
     order, or oracle_results). One `phase` line per unit; fails after the
     last line if any unit fell back to the host, disagreed, or strayed
     from the lifecycle. Sets ``recorder.label`` to each unit's name while
-    it runs. Returns (counter totals, the oracle results, the lines)."""
+    it runs; ``results`` ({unit: result}) receives each unit's last
+    result. Returns (counter totals, the oracle results, the lines)."""
     from nds_tpu_torch.validate import table_mismatches
     runs, failed = [], []
     ck.reset_launches()                 # the path starts here
@@ -368,6 +400,8 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
             failed += _lifecycle_faults(name, [r[2] for r in compiled])
         runs.append((eager, compiled, {k: ck.LAUNCHES[k] - before[k]
                                        for k in ck.LAUNCHES}))
+        if results is not None:
+            results[name] = (eager + compiled)[-1][0]
     totals = dict(ck.LAUNCHES)          # read just after the path
     if recorder is not None:
         recorder.label = None
@@ -452,15 +486,314 @@ def phase_queries(session, ck, recorder=None):
 def phase_replay(session, ck, oracle) -> dict:
     """QUERIES through the compiled lifecycle on the query phase's session
     (its scans resident), against its oracle results. Returns the counter
-    totals with the capture launches summed over the queries."""
+    totals with the capture launches summed over the queries, each
+    query's replay wall (``walls``) and last result (``results``)."""
+    results: dict = {}
     totals, _, lines = run_units(session, ck, query_units(), "replay",
-                                 replay=True, oracle=oracle)
+                                 replay=True, oracle=oracle, results=results)
     captured = {k: sum(ln["captured_launches"].get(k, 0) for ln in lines)
                 for k in ck.LAUNCHES}
     emit("replay_launches", totals=totals, captured=captured,
          eager_warm_s=sum(ln["warm_s"] for ln in lines),
          replay_s=sum(ln["replay_s"] for ln in lines))
+    return {"totals": totals, "captured": captured, "results": results,
+            "walls": {ln["unit"]: ln["replay_s"] for ln in lines}}
+
+
+# ---------------------------------------------------------------------------
+# the streamed (out-of-core) path
+# ---------------------------------------------------------------------------
+
+#: the tables the streamed phases read from Parquet (their row counts then
+#: come from its metadata), transcoded from the generated CSV
+STREAMED_TABLES = ("store_sales", "catalog_sales", "inventory")
+#: Parquet row groups of the transcode: one per default morsel
+ROW_GROUP_ROWS = 1 << 22
+#: the SF10 units that scan inventory: five stream it at the default
+#: settings, and q39's two parts find no streaming job and run in-core
+STREAM_DEFAULT = ("query21", "query22", "query37", "query72", "query82")
+INCORE_DEFAULT = ("query39_part1", "query39_part2")
+#: the threshold of phase stream_lowered, over which store_sales (28.8M
+#: rows at SF10) and catalog_sales (14.4M) stream too, but not web_sales
+#: (7.2M); of QUERIES, 12 (web_sales only), 38 and 87 find no streaming
+#: job and run in-core
+LOWERED_MIN_ROWS = 10_000_000
+INCORE_LOWERED = ("query12", "query38", "query87")
+#: warm runs of each unit after its cold run: three in stream_default,
+#: one in stream_lowered (its 14 queries replay in phase replay already)
+WARM_PASSES = 3
+WARM_PASSES_LOWERED = 1
+
+
+def phase_transcode(tmp: str, name: str = "data") -> dict:
+    """STREAMED_TABLES from the generated CSV to Parquet (pyarrow on the
+    host, four files at a time), one file for each CSV file. Returns
+    {table: directory}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pyarrow.csv as pa_csv
+    import pyarrow.parquet as pq
+    from nds_tpu_torch.schema import get_schemas
+
+    def one(job):
+        schema, src, target = job
+        t = pa_csv.read_csv(
+            src,
+            read_options=pa_csv.ReadOptions(
+                column_names=[c.name for c in schema]),
+            parse_options=pa_csv.ParseOptions(delimiter="|"),
+            convert_options=pa_csv.ConvertOptions(
+                column_types={c.name: c.type for c in schema},
+                null_values=[""], strings_can_be_null=True))
+        pq.write_table(t, target, row_group_size=ROW_GROUP_ROWS)
+        return t.num_rows, os.path.getsize(target)
+
+    t0 = time.perf_counter()
+    out, jobs = {}, []
+    for table in STREAMED_TABLES:
+        schema = get_schemas(True)[table].arrow_schema(use_decimal=True)
+        src = os.path.join(tmp, name, table)
+        out[table] = os.path.join(tmp, "parquet", table)
+        os.makedirs(out[table])
+        jobs += [(table, (schema, os.path.join(src, f),
+                          os.path.join(out[table], f + ".parquet")))
+                 for f in sorted(os.listdir(src))
+                 if os.path.getsize(os.path.join(src, f)) > 0]
+    with ThreadPoolExecutor(4) as pool:
+        done = list(pool.map(one, [job for _, job in jobs]))
+    rows = {t: sum(n for (tt, _), (n, _) in zip(jobs, done) if tt == t)
+            for t in STREAMED_TABLES}
+    emit("transcode", seconds=time.perf_counter() - t0, rows=rows,
+         parquet_bytes=sum(b for _, b in done))
+    return out
+
+
+def stream_session(nt, tmp: str, parquet: dict, device: str = "cuda",
+                   name: str = "data"):
+    """A session over the generated data, STREAMED_TABLES from Parquet."""
+    from nds_tpu_torch import datagen
+    session = nt.Session(nt.EngineConfig(decimal_physical="i64"),
+                         device=device)
+    datagen.setup_tables(session, os.path.join(tmp, name), use_decimal=True)
+    for table, path in parquet.items():
+        session.register_parquet(table, path)
+    return session
+
+
+def oracle_async(session, sqls: list, workers: int):
+    """oracle_results for `sqls`, started now in `workers` processes
+    forked from this one, which goes on meanwhile; returns (pool,
+    AsyncResult)."""
+    import multiprocessing
+    _FORKED["session"] = session
+    try:
+        pool = multiprocessing.get_context("fork").Pool(workers)
+    finally:
+        _FORKED.clear()
+    return pool, pool.map_async(_oracle, sqls, chunksize=1)
+
+
+def _streamed_fields(runs: list) -> dict:
+    """One streamed unit's figures: the cold run and the median of the
+    warm ones."""
+    def med(key):
+        vals = [r[2][key] for r in runs[1:] if r[2].get(key) is not None]
+        return statistics.median(vals) if vals else None
+    cold = runs[0][2]
+    gbps = [r[2]["bytes_uploaded"] / r[2]["upload_ms"] / 1e6
+            for r in runs[1:] if r[2].get("upload_ms")]
+    return {"morsels": cold["morsels"],
+            "morsels_per_table": cold["morsels_per_table"],
+            "jobs": cold["jobs"], "scan_passes": cold["scan_passes"],
+            "fused_groups": cold["fused_groups"],
+            "bytes_uploaded": cold["bytes_uploaded"],
+            "upload_gb_s": statistics.median(gbps) if gbps else None,
+            "stage_hidden_share": med("stage_hidden_share"),
+            "host_decode_ms": statistics.median(
+                sum(r[2]["host_decode_ms"].values()) for r in runs[1:]),
+            "stage_ms": med("stage_ms"), "finalize_ms": med("finalize_ms"),
+            "busy_share": med("busy_share"), "graph_ms": med("graph_ms"),
+            "cold_busy_share": cold.get("busy_share"),
+            "re_records": [r[2]["re_records"] for r in runs],
+            "captures": [r[2]["captures"] for r in runs],
+            "captured_launches": cold.get("captured_launches", {}),
+            "graph_launches": runs[-1][2].get("graph_launches", {})}
+
+
+def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
+                     oracle=None, incore: dict | None = None,
+                     incore_walls: dict | None = None,
+                     preload: tuple = (), deferred: tuple = (),
+                     warm: int = WARM_PASSES):
+    """Each (name, sql) of `units` through Session.sql(backend="torch"),
+    cold and then `warm` times warm, with the launch counters zeroed
+    just before the first run and read just after the last. A unit of
+    `streamed` must stream on every run, with no fallback, no prefetch
+    error and no CUDA graph capture after its cold run; any other must run
+    in-core. Every result is held against the numpy executor (`oracle`,
+    [(result, seconds)] in unit order, or oracle_results after the runs)
+    and, where `incore` ({unit: result}) has the unit, against its in-core
+    result. One `phase` line per unit, beside its in-core replay wall
+    where `incore_walls` has it. The tables of `preload` are loaded whole
+    on the host first, so that the oracle's workers share them; the
+    oracle of the units of `deferred` (in that order) starts then, in two
+    workers that run beside everything after, and their lines wait for
+    it. Returns (counter totals, captured launches, a function that
+    checks and emits the deferred units and returns their lines)."""
+    from nds_tpu_torch.validate import table_mismatches
+    t0 = time.perf_counter()
+    for table in preload:
+        session.load_table(table)
+    sqls = dict(units)
+    later = [(n, sqls[n]) for n in deferred]
+    pending = oracle_async(session, [sql for _, sql in later], 2) \
+        if later else None
+    emit(f"{phase}_oracle_start", preload=list(preload),
+         seconds=time.perf_counter() - t0, deferred=[n for n, _ in later])
+    runs, failed = {}, []
+    ck.reset_launches()                 # the path starts here
+    for name, sql in units:
+        before = dict(ck.LAUNCHES)
+        rr = [_sql_run(session, sql, True) for _ in range(1 + warm)]
+        runs[name] = (rr, {k: ck.LAUNCHES[k] - before[k]
+                           for k in ck.LAUNCHES})
+        for i, (_, _, st, _) in enumerate(rr):
+            mode = st.get("mode")
+            if st["fallbacks"]:
+                failed.append(f"{name} (run {i}): host fallback "
+                              f"{st['fallbacks']}")
+            if name not in streamed:
+                if mode == "streamed":
+                    failed.append(f"{name} (run {i}) streamed, expected "
+                                  "in-core")
+                continue
+            if mode != "streamed":
+                failed.append(f"{name} (run {i}) ran {mode}, not streamed"
+                              f" ({st.get('stream_refused')})")
+                continue
+            if st["prefetch_error_details"]:
+                failed.append(f"{name} (run {i}): prefetch errors "
+                              f"{st['prefetch_error_details']}")
+            if i > 0 and st["captures"]:
+                failed.append(f"{name} (run {i}): {st['captures']} "
+                              "captures on a warm pass")
+    totals = dict(ck.LAUNCHES)          # read just after the path
+
+    def check(name: str, want, oracle_s: float) -> dict:
+        rr, launches = runs[name]
+        bad = []
+        for i, (got, *_rest) in enumerate(rr):
+            mm = table_mismatches(got, want)
+            if mm:
+                bad.append(f"{name} (run {i}) disagrees with the numpy "
+                           f"oracle: {mm}")
+            if incore is not None and name in incore:
+                mm = table_mismatches(got, incore[name])
+                if mm:
+                    bad.append(f"{name} (run {i}) disagrees with its "
+                               f"in-core result: {mm}")
+        line = {"unit": name, "mode": rr[0][2].get("mode"),
+                "cold_s": rr[0][1],
+                "warm_s": statistics.median(r[1] for r in rr[1:]),
+                "warm_walls_s": [r[1] for r in rr[1:]],
+                "incore_replay_s": (incore_walls or {}).get(name),
+                "rows": rr[-1][0].num_rows, "oracle_s": oracle_s,
+                "peak_mem_gb": max(r[3] for r in rr), "launches": launches}
+        if name in streamed and rr[0][2].get("mode") == "streamed":
+            line.update(_streamed_fields(rr))
+        else:
+            line["modes"] = [r[2].get("mode") for r in rr]
+        emit(phase, **line)
+        failed.extend(bad)
+        return line
+
+    now = [(n, sql) for n, sql in units if n not in deferred]
+    if oracle is None and now:
+        oracle = oracle_results(session, [sql for _, sql in now])
+    lines = [check(name, *o) for (name, _), o in zip(now, oracle or [])]
+    if failed:
+        raise SystemExit(f"{phase}: " + "\n".join(failed))
+    missing = [k for k, v in totals.items() if v == 0]
+    if missing:
+        raise SystemExit(f"{phase}: kernels never launched: {missing}")
+    captured = {k: sum(ln.get("captured_launches", {}).get(k, 0)
+                       for ln in lines) for k in ck.LAUNCHES}
+
+    def finish() -> list:
+        if pending is None:
+            return []
+        pool, res = pending
+        t1 = time.perf_counter()
+        got = res.get()
+        pool.close()
+        pool.join()
+        out = [check(name, *o) for (name, _), o in zip(later, got)]
+        emit(f"{phase}_deferred_oracle", units=[n for n, _ in later],
+             waited_s=time.perf_counter() - t1)
+        if failed:
+            raise SystemExit(f"{phase}: " + "\n".join(failed))
+        for ln in out:
+            for k in captured:
+                captured[k] += ln.get("captured_launches", {}).get(k, 0)
+        return out
+    return totals, captured, finish
+
+
+def phase_stream_default(session, ck, scale: float = 1.0) -> dict:
+    """The SF10 units that scan inventory (stream 0) at the reference's
+    defaults (``scale`` < 1 scales the threshold and the morsel with a
+    smaller --sf): STREAM_DEFAULT stream it, INCORE_DEFAULT run in-core
+    over the whole table. Their numpy oracle (q72's alone about 370 s at
+    SF10, the others 10-100 s each) runs in two workers beside this
+    phase's runs and the phases that follow; ``finish`` checks the units
+    against it."""
+    from nds_tpu_torch import streams
+    cfg = session.config
+    cfg.out_of_core_min_rows = int(48_000_000 * scale)
+    cfg.chunk_rows = max(1024, int((1 << 22) * scale))
+    names = STREAM_DEFAULT + INCORE_DEFAULT
+    units = [(n, sql) for n, sql in streams.template_units(
+        stream=0, rngseed=SEED) if n in names]
+    totals, captured, finish = run_stream_units(
+        session, ck, units, "stream_default", STREAM_DEFAULT,
+        preload=("inventory",),
+        # the longest first: q72 takes one worker, the rest the other
+        deferred=("query72", "query22", "query39_part1", "query39_part2",
+                  "query21", "query37", "query82"))
+    emit("stream_default_launches", totals=totals)
+    return {"totals": totals, "captured": captured, "finish": finish}
+
+
+def phase_stream_lowered(session, ck, oracle, replay: dict,
+                         scale: float = 1.0) -> dict:
+    """QUERIES with the threshold at LOWERED_MIN_ROWS: every one but
+    INCORE_LOWERED streams store_sales or catalog_sales, held against
+    phase query's oracle and phase replay's in-core results."""
+    cfg = session.config
+    cfg.out_of_core_min_rows = int(LOWERED_MIN_ROWS * scale)
+    cfg.chunk_rows = max(1024, int((1 << 22) * scale))
+    units = query_units()
+    streamed = tuple(n for n, _ in units if n not in INCORE_LOWERED)
+    totals, captured, _ = run_stream_units(
+        session, ck, units, "stream_lowered", streamed, oracle=oracle,
+        incore=replay["results"], incore_walls=replay["walls"],
+        warm=WARM_PASSES_LOWERED)
+    emit("stream_lowered_launches", totals=totals, captured=captured)
     return {"totals": totals, "captured": captured}
+
+
+def finish_streamed(streamed: dict) -> None:
+    """The deferred oracle checks of the streamed phases, and the kernel
+    launches their graph captures made. (A morsel schedule inflates a
+    global aggregate's segment count to the morsel bound, past
+    GROUPBY_MAX_SEGMENTS, so the segment reduction runs only in record
+    passes there: its graphs take the plain scatter, as the reference's
+    inflated programs take XLA's.)"""
+    for st in streamed.values():
+        if "finish" in st:
+            st.pop("finish")()
+    emit("streamed_captured_launches", **{
+        ph: st["captured"] for ph, st in streamed.items()})
 
 
 def first_row_one_slot(gid, mask):
@@ -822,8 +1155,8 @@ def graph_timed(kern, args, kwargs) -> dict:
     return {"graph_ms": dev_ms, "graph_host_ms": host_ms}
 
 
-def phase_kernels(ck, recorder, launches, replay, device: str = "cuda",
-                  parents: dict | None = None) -> list:
+def phase_kernels(ck, recorder, launches, replay, streamed: dict,
+                  device: str = "cuda", parents: dict | None = None) -> list:
     """Each kernel at the largest call of each regime the query phase gave
     it (the largest of all is the kernel's row, also timed as a graph
     replay), then on the edge cases; every call bit-identical to the plain
@@ -832,7 +1165,8 @@ def phase_kernels(ck, recorder, launches, replay, device: str = "cuda",
     they are given. ``launches`` are the eager query phase's counts;
     ``replay`` the replay phase's (``captured``: launches made while a
     graph was captured; a graph's replays call no wrapper and count
-    nothing)."""
+    nothing); ``streamed`` the streamed phases', by phase. A row's
+    ``launches`` sums the query phase's and the streamed phases'."""
     import torch
     dev = torch.device(device)
     parents = parents or {}
@@ -861,7 +1195,12 @@ def phase_kernels(ck, recorder, launches, replay, device: str = "cuda",
                 rows.append({
                     "name": name, "route": "cuda",
                     "source": f"nds_tpu_torch/csrc/{ck.SOURCES[name]}",
-                    "replaces": REPLACES[name], "launches": launches[name],
+                    "replaces": REPLACES[name],
+                    "launches": launches[name] + sum(
+                        st["totals"][name] for st in streamed.values()),
+                    "query_launches": launches[name],
+                    "stream_launches": {ph: st["totals"][name]
+                                        for ph, st in streamed.items()},
                     "max_abs_err": err, "ms": m["ms"],
                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": "bytes", "library_ms": m["library_ms"],
@@ -902,7 +1241,7 @@ def load_parent(tree: str, k: int):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sf", type=float, default=10.0)
-    ap.add_argument("--templates_sf", type=float, default=1.0,
+    ap.add_argument("--templates_sf", type=float, default=0.5,
                     help="scale of the phase that runs every template")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more warm run of each query")
@@ -944,7 +1283,17 @@ def main() -> int:
             phase_profile(session)
         recorder.unwrap()
         replay = phase_replay(session, ck, oracle)
-        del session, oracle     # their tables, host and device, are done
+        del session             # its tables, host and device, are done
+        gc.collect()
+        torch.cuda.empty_cache()
+        scale = args.sf / 10
+        ssession = stream_session(nt, tmp, phase_transcode(tmp))
+        streamed = {
+            "stream_default": phase_stream_default(ssession, ck, scale),
+            "stream_lowered": phase_stream_lowered(ssession, ck, oracle,
+                                                   replay, scale)}
+        del ssession, oracle
+        replay.pop("results")
         gc.collect()
         torch.cuda.empty_cache()
         phase_spare_slot(recorder)
@@ -952,18 +1301,24 @@ def main() -> int:
             k: {reg: f"{_shape(k, a)} from {callers}"
                 for reg, a, _, callers in v}
             for k, v in recorder.regimes().items()})
-        rows = phase_kernels(ck, recorder, launches, replay,
+        rows = phase_kernels(ck, recorder, launches, replay, streamed,
                              parents=parents)
         phase_templates(nt, ck, args.templates_sf, tmp)
+        finish_streamed(streamed)
+        for row in rows:
+            row["stream_captured_launches"] = {
+                ph: st["captured"][row["name"]]
+                for ph, st in streamed.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    # each row's "launches" counts the eager query phase's calls into the
-    # kernel's launch entry; "replay_launches" the replay phase's, and
-    # "captured_launches" those of them made while a CUDA graph was
-    # captured: a graph's replays run the kernel without calling its
-    # wrapper, so they add to no count
+    # each row's "launches" counts the calls into the kernel's launch
+    # entry in the main paths: the eager query phase and the two streamed
+    # phases (apart in "query_launches" and "stream_launches");
+    # "replay_launches" the replay phase's, and "captured_launches" those
+    # of them made while a CUDA graph was captured: a graph's replays run
+    # the kernel without calling its wrapper, so they add to no count
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
-"""Engine configuration of the port: only what the in-core path reads.
+"""Engine configuration of the port: what the in-core and streamed paths read.
 
 Counterpart of ``nds_tpu/config.py``'s ``EngineConfig``; field names and
-defaults follow it except where the card differs (``decimal_physical``
-defaults to exact int64 decimals, ``gpu_kernels`` replaces ``pallas_ops``
-with all three kernels on by default, and ``scan_budget_gb`` is sized to
-the card's 80 GB).
+defaults follow it, the streamed path's too, except where the card differs
+(``decimal_physical`` defaults to exact int64 decimals, ``gpu_kernels``
+replaces ``pallas_ops`` with all three kernels on by default, and
+``scan_budget_gb`` is sized to the card's 80 GB).
 """
 from __future__ import annotations
 
@@ -27,10 +27,30 @@ class EngineConfig:
     # (a subset of {"sort", "groupby", "gather"}); on CPU tensors each
     # kernel's plain version runs in its place
     gpu_kernels: tuple = ("gather", "groupby", "sort")
-    # scans of tables above this estimated row count would stream through
-    # the device in morsels in the reference; the port runs in-core only
-    # and refuses them
+    # out-of-core execution: every maximal streamable aggregate over one
+    # big scan streams its table through the card in chunk_rows morsels
+    # (one compiled program, captured as a CUDA graph, serves every morsel
+    # of a scan group; partials merge on the host). Plans with no
+    # streaming job run in-core
+    out_of_core: bool = True
+    # a scan streams (rather than staying device-resident) when its table
+    # exceeds this estimated row count
     out_of_core_min_rows: int = 48_000_000
+    # rows per morsel; every morsel lands in a device slot of
+    # bucket(chunk_rows) rows
+    chunk_rows: int = 1 << 22
+    # accumulated streamed-partial rows that trigger a host-side compaction
+    # (partial-schema-preserving re-aggregation), bounding host memory for
+    # high-cardinality groups
+    stream_compact_rows: int = 8_000_000
+    # shared scan: all streaming branches of one query over the same big
+    # table share ONE morsel pass (the union of their columns is staged
+    # once per morsel)
+    shared_scan: bool = True
+    # a shared-scan group of at most this many branches runs as ONE
+    # multi-output program per morsel (one CUDA graph); larger groups run
+    # per-branch programs over the same slot. 0 = fuse unconditionally
+    stream_fusion_max_branches: int = 16
     # torch device for the device path: None = "cuda"
     device: Optional[str] = None
     # compiled replay: a unit's first run records its capacity schedule,

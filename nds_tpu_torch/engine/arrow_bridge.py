@@ -1,5 +1,9 @@
-# Copied from nds_tpu/engine/arrow_bridge.py; only import paths changed, and
-# from_arrow drops the fault-injection hook of the reference's resilience layer.
+# Copied from nds_tpu/engine/arrow_bridge.py; only import paths changed,
+# from_arrow drops the fault-injection hook of the reference's resilience
+# layer, and three conversions are vectorized with the same values (an
+# integer column's nulls fill in Arrow, and decimals pass between scaled
+# int64 and decimal128 storage without a per-row Python loop): the
+# streamed path decodes every morsel and merges every partial through here.
 """Arrow <-> engine Table conversion.
 
 Arrow is the host-side interchange format (the `collect()` analog in the
@@ -58,6 +62,19 @@ def _decimal_to_scaled_i64(arr: pa.Array) -> np.ndarray:
         ints = pc.cast(pc.multiply(arr, mul), pa.int64(), safe=False)
         ints = pc.fill_null(ints, 0)
         return ints.to_numpy(zero_copy_only=False)
+    if pa.types.is_decimal128(t):
+        # a decimal128's storage IS value*10^s as a 128-bit integer: where
+        # every one fits int64 (its high word is its low word's sign), the
+        # low words are the answer
+        words = np.frombuffer(arr.buffers()[1], dtype=np.int64)[
+            2 * arr.offset:2 * (arr.offset + len(arr))].reshape(-1, 2)
+        lo, hi = words[:, 0], words[:, 1]
+        valid = ~np.asarray(arr.is_null()) if arr.null_count else None
+        fits = hi == (lo >> 63)
+        if valid is not None:
+            fits |= ~valid
+        if bool(fits.all()):
+            return lo.copy() if valid is None else np.where(valid, lo, 0)
     out = np.zeros(len(arr), dtype=np.int64)     # precision edge: exact loop
     for i, d in enumerate(arr.to_pylist()):
         if d is not None:
@@ -111,11 +128,12 @@ def from_arrow_column(arr, dec_as_int: bool = False) -> Column:
         vals = arr.to_numpy(zero_copy_only=False)
         vals = np.asarray(vals, dtype=bool)
         return Column("bool", vals, valid)
-    # int
+    # int: nulls fill in Arrow, as for dates (to_numpy would otherwise
+    # round-trip the whole column through float64)
     valid = ~np.asarray(arr.is_null()) if null_count else None
+    if null_count:
+        arr = pc.fill_null(arr, 0)
     vals = arr.to_numpy(zero_copy_only=False)
-    if valid is not None:
-        vals = np.where(valid, vals, 0)
     return Column("int", np.asarray(vals, dtype=np.int64), valid)
 
 
@@ -129,13 +147,20 @@ def to_arrow_column(col: Column) -> pa.Array:
     v = col.validity
     mask = None if col.valid is None else ~col.valid
     if is_dec(col.dtype):
-        # output materialization is post-aggregation (small); exact loop.
-        # precision 20 covers any scaled int64 (<= 19 digits) and keeps the
-        # fast path available if the column round-trips back through
-        # _decimal_to_scaled_i64 (streamed-partials merge)
-        return pa.array(col.decode().tolist(),
-                        type=pa.decimal128(min(38, 20 + dec_scale(col.dtype)),
-                                           dec_scale(col.dtype)))
+        # the scaled int64 values are the decimal128 storage (low word, and
+        # its sign as the high word); precision 20 covers any scaled int64
+        # (<= 19 digits)
+        data = np.where(v, np.asarray(col.data, dtype=np.int64), 0)
+        words = np.empty((len(data), 2), dtype=np.int64)
+        words[:, 0] = data
+        words[:, 1] = data >> 63
+        bitmap = None if mask is None else \
+            pa.py_buffer(np.packbits(v, bitorder="little"))
+        return pa.Array.from_buffers(
+            pa.decimal128(min(38, 20 + dec_scale(col.dtype)),
+                          dec_scale(col.dtype)),
+            len(data), [bitmap, pa.py_buffer(words)],
+            null_count=0 if mask is None else int(mask.sum()))
     if col.dtype == "str":
         codes = np.asarray(col.data)
         d = col.dictionary if col.dictionary is not None \

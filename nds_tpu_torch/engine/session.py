@@ -11,16 +11,28 @@ A repeated statement is not parsed or planned again: the executor keeps its
 units by SQL text and takes them through record, compile+run and compiled
 (``last_stats`` says which, see TorchExecutor.run_query).
 
-Not in this slice: out-of-core (morsel-streamed) scans, which raise; the
-result cache, query log, system tables, DML and EXPLAIN ANALYZE.
+Out-of-core (``out_of_core``, on by default): every maximal streamable
+aggregate over a table above ``out_of_core_min_rows`` streams that table
+through the card in ``chunk_rows`` morsels (``_sql_streaming``); a plan
+with no streaming job runs in-core, whatever its scans' sizes.
+``last_stats["mode"]`` is "streamed" for a streamed run.
+
+Not in this slice: the streamed path's narrow-lane packed uploads and
+encoded execution, sharded morsels, feedback-adapted schedules and
+preemption; the result cache, query log, system tables, DML and EXPLAIN
+ANALYZE.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import threading
+import time
 from typing import Callable, Optional
 
+import numpy as np
 import pyarrow as pa
+import pyarrow.dataset as pa_dataset
 import torch
 
 from ..config import EngineConfig
@@ -28,7 +40,6 @@ from ..sql import parse_sql
 from . import arrow_bridge
 from .column import Table
 from .executor import Executor
-from .plan import ScanNode, iter_plan_nodes
 from .planner import Catalog, Planner
 
 
@@ -52,6 +63,16 @@ class Session:
             raise ValueError("the port supports verify_plans='off' only")
         self.device = resolve_device(device or self.config.device)
         self._loaders: dict[str, Callable] = {}
+        # table -> callable(columns) yielding arrow tables/batches in order,
+        # the morsel source of a streamed scan
+        self._batch_sources: dict[str, Callable] = {}
+        # streamed-path state per query: rewritten plans, scan groups, the
+        # stream executor, compiled morsel programs and slots (None: the
+        # query has no streaming job); valid for one _stream_config_key
+        self._stream_cache: dict = {}
+        self._stream_cache_cfg = None
+        # query -> why a plan with streaming jobs ran in-core instead
+        self._stream_refused: dict[str, str] = {}
         self._schemas: dict[str, tuple[list[str], list[str]]] = {}
         self._est_rows: dict[str, int] = {}
         self._unique_cols: dict[str, frozenset] = {}
@@ -80,11 +101,13 @@ class Session:
             c for c in unique_cols if c in have)
 
     def _registered(self, name: str, names, dtypes, est_rows: int,
-                    unique_cols, loader: Callable) -> None:
+                    unique_cols, loader: Callable,
+                    batches: Callable) -> None:
         self._schemas[name] = (list(names), list(dtypes))
         self._set_unique_cols(name, names, unique_cols)
         self._est_rows[name] = est_rows
         self._loaders[name] = loader
+        self._batch_sources[name] = batches
         for k in [k for k in self._cache if k[0] == name]:
             del self._cache[k]
         self._generation += 1
@@ -99,9 +122,41 @@ class Session:
         def load(columns=None, t=table, dec=dec):
             return arrow_bridge.from_arrow(
                 t.select(list(columns)) if columns else t, dec)
+
+        def batches(columns, t=table):
+            yield t.select(list(columns)) if columns else t
         self._registered(name, names, dtypes,
                          est_rows if est_rows is not None else table.num_rows,
-                         unique_cols, load)
+                         unique_cols, load, batches)
+
+    def register_parquet(self, name: str, path: str,
+                         est_rows: Optional[int] = None,
+                         unique_cols: Optional[tuple] = None) -> None:
+        """Register a parquet file or partitioned directory as a table; the
+        row estimate comes from its metadata (``count_rows``), and a
+        streamed scan reads it batch by batch."""
+        dataset = pa_dataset.dataset(path, format="parquet",
+                                     partitioning="hive")
+        # dictionary pass-through for the fully dictionary-encoded string
+        # columns: a morsel then carries codes + dictionary
+        fmt = arrow_bridge.parquet_dataset_format(list(dataset.files))
+        if fmt is not None:
+            dataset = pa_dataset.dataset(path, format=fmt,
+                                         partitioning="hive")
+        dec = self._dec_as_int()
+        names, dtypes = arrow_bridge.engine_schema(dataset.schema, dec)
+        if est_rows is None:
+            est_rows = dataset.count_rows()
+
+        def load(columns=None, ds=dataset, dec=dec):
+            cols = list(columns) if columns is not None else None
+            return arrow_bridge.from_arrow(ds.to_table(columns=cols), dec)
+
+        def batches(columns, ds=dataset):
+            cols = list(columns) if columns is not None else None
+            yield from ds.to_batches(columns=cols)
+        self._registered(name, names, dtypes, est_rows, unique_cols, load,
+                         batches)
 
     def register_csv(self, name: str, path: str, schema: pa.Schema,
                      est_rows: Optional[int] = None, delimiter: str = "|",
@@ -114,21 +169,64 @@ class Session:
         dec = self._dec_as_int()
         names, dtypes = arrow_bridge.engine_schema(schema, dec)
 
-        def load(columns=None, files=tuple(files), schema=schema, dec=dec):
+        def batches(columns, files=tuple(files), schema=schema):
+            """One Arrow table per non-empty file, in order."""
             convert = pa_csv.ConvertOptions(
                 column_types={f.name: f.type for f in schema},
                 null_values=[""], strings_can_be_null=True,
                 include_columns=list(columns) if columns else None)
             read = pa_csv.ReadOptions(column_names=[f.name for f in schema])
             parse = pa_csv.ParseOptions(delimiter=delimiter)
-            parts = [pa_csv.read_csv(f, read_options=read,
-                                     parse_options=parse,
-                                     convert_options=convert)
-                     for f in files if os.path.getsize(f) > 0]
-            return arrow_bridge.from_arrow(pa.concat_tables(parts), dec)
+            for f in files:
+                if os.path.getsize(f) > 0:
+                    yield pa_csv.read_csv(f, read_options=read,
+                                          parse_options=parse,
+                                          convert_options=convert)
+
+        def load(columns=None, dec=dec):
+            return arrow_bridge.from_arrow(
+                pa.concat_tables(list(batches(columns))), dec)
         self._registered(name, names, dtypes,
                          est_rows if est_rows is not None else 10000,
-                         unique_cols, load)
+                         unique_cols, load, batches)
+
+    def iter_morsels(self, name: str, columns: list[str], rows: int):
+        """Yield host Tables of at most `rows` rows each, WITHOUT
+        materializing the whole table (out-of-core scans). Parquet datasets
+        stream record batches; arrow tables slice zero-copy; CSV falls back
+        to per-file reads."""
+        def flush(pending):
+            # a single pending slice (aligned source batches, the common
+            # parquet row-group case) passes through zero-copy — concat
+            # would re-chunk and copy for nothing
+            return pending[0] if len(pending) == 1 \
+                else pa.concat_tables(pending)
+
+        def emit(batches):
+            """Re-chunk a stream of arrow tables into `rows`-sized morsels."""
+            pending: list[pa.Table] = []
+            count = 0
+            for b in batches:
+                t = pa.Table.from_batches([b]) if isinstance(
+                    b, pa.RecordBatch) else b
+                while t.num_rows:
+                    take = min(rows - count, t.num_rows)
+                    pending.append(t.slice(0, take))
+                    t = t.slice(take)
+                    count += take
+                    if count == rows:
+                        yield flush(pending)
+                        pending, count = [], 0
+            if pending:
+                yield flush(pending)
+
+        src = self._batch_sources.get(name)
+        if src is not None:
+            batches = src(columns)
+        else:  # fallback: full load, sliced (correct, not memory-bounded)
+            batches = [arrow_bridge.to_arrow(self.load_table(name, columns))]
+        for part in emit(batches):
+            yield arrow_bridge.from_arrow(part, self._dec_as_int())
 
     def load_table(self, name: str, columns=None) -> Table:
         """Load a table, optionally projected to `columns`; cached per
@@ -158,19 +256,21 @@ class Session:
     def _executor(self):
         """The session-held device executor: its device-resident scans
         persist across queries until a table (re-)registers."""
-        cfg = self.config
         if self._exec is None or self._exec_gen != self._generation:
-            from .torch_backend.executor import TorchExecutor
-            self._exec = TorchExecutor(
-                self.load_table, self.device, gpu_kernels=cfg.gpu_kernels,
-                jit_plans=cfg.jit_plans,
-                segment_plan_nodes=cfg.segment_plan_nodes,
-                segment_min_cte_nodes=cfg.segment_min_cte_nodes,
-                segment_cache_entries=cfg.segment_cache_entries,
-                scan_budget_bytes=int(cfg.scan_budget_gb * (1 << 30)))
+            self._exec = self._new_executor(self.config.jit_plans)
             self._exec_gen = self._generation
-        self._exec._jit_plans = cfg.jit_plans
+        self._exec._jit_plans = self.config.jit_plans
         return self._exec
+
+    def _new_executor(self, jit_plans: bool):
+        from .torch_backend.executor import TorchExecutor
+        cfg = self.config
+        return TorchExecutor(
+            self.load_table, self.device, gpu_kernels=cfg.gpu_kernels,
+            jit_plans=jit_plans, segment_plan_nodes=cfg.segment_plan_nodes,
+            segment_min_cte_nodes=cfg.segment_min_cte_nodes,
+            segment_cache_entries=cfg.segment_cache_entries,
+            scan_budget_bytes=int(cfg.scan_budget_gb * (1 << 30)))
 
     def plan(self, query: str):
         return Planner(self._catalog()).plan_query(parse_sql(query))
@@ -186,23 +286,442 @@ class Session:
         if backend == "numpy":
             return Executor(self.load_table).execute(self.plan(query))
         self.last_stats = {}
-
-        def factory():
-            plan = self.plan(query)
-            big = sorted({n.table for n in iter_plan_nodes(plan)
-                          if isinstance(n, ScanNode) and self._est_rows.get(
-                              n.table, 0) > self.config.out_of_core_min_rows})
-            if big:
-                raise NotImplementedError(
-                    f"scans of {big} exceed out_of_core_min_rows and would "
-                    "stream; the port runs in-core only")
-            return plan
+        # units are labelled "<label>/<unit>" in the executor's messages
+        self._active_label = "q" + hashlib.sha1(query.encode()).hexdigest()[:8]
+        refused = None
+        if self.config.out_of_core:
+            result = self._sql_streaming(query)
+            if result is not None:
+                return result
+            refused = self._stream_refused.get(query)
         from .torch_backend.device import to_host
         ex = self._executor()
-        # units are labelled "<label>/<unit>" in the executor's messages
-        ex.query_label = "q" + hashlib.sha1(query.encode()).hexdigest()[:8]
+        ex.query_label = self._active_label
         with ex.on_stream():
-            result = to_host(ex.run_query(("sql", query), factory))
+            result = to_host(ex.run_query(("sql", query),
+                                          lambda: self.plan(query)))
         self.last_fallbacks = list(ex.fallback_nodes)
         self.last_stats = dict(ex.last_stats)
+        if refused:
+            self.last_stats["stream_refused"] = refused
         return result
+
+    # -- the streamed (out-of-core) path -------------------------------------
+    def _stream_config_key(self) -> tuple:
+        """Streaming-state cache validity fingerprint: the cached rewritten
+        plans, scan groups, compiled morsel programs, and not-streamable
+        sentinels are all functions of the catalog generation AND these
+        config fields — toggling any of them on a live session must not
+        replay a stale entry."""
+        cfg = self.config
+        return (self._generation, cfg.out_of_core_min_rows, cfg.chunk_rows,
+                cfg.stream_compact_rows, cfg.shared_scan,
+                cfg.stream_fusion_max_branches, cfg.late_materialization,
+                cfg.late_mat_min_rows, cfg.decimal_physical,
+                tuple(sorted(cfg.gpu_kernels)))
+
+    def _drop_stream_cache(self) -> None:
+        """Close every cached morsel slot and forget the streamed state."""
+        for sent in self._stream_cache.values():
+            for gstate in (sent or {}).get("gstates", ()):
+                _close_group(gstate)
+        self._stream_cache = {}
+        self._stream_refused = {}
+
+    def _sql_streaming(self, query: str) -> Optional[Table]:
+        """Out-of-core execution: every MAXIMAL streamable aggregate
+        subtree in the plan (top-level, below joins, inside CTE bodies,
+        scalar subqueries, UNION ALL fact-channel branches, semi-join build
+        sides) streams its big scan through the card in chunk_rows morsels.
+        All branches of a query that scan the SAME big table form one
+        ScanGroup (streaming.plan_scan_groups): the union of their columns
+        is staged once per morsel into the group's slot, and the members'
+        programs read it. Per-morsel partial aggregates merge on the host
+        (compacted past stream_compact_rows), and a MaterializedNode
+        replaces each aggregate subtree before the rest of the plan runs on
+        the host numpy executor, as in the reference. Returns None when
+        nothing streams (``last_stats["stream_refused"]`` says why, where
+        jobs were found)."""
+        from . import streaming
+        from .plan import BCol, MaterializedNode
+
+        cfg_key = self._stream_config_key()
+        if self._stream_cache_cfg != cfg_key:
+            self._drop_stream_cache()
+            self._stream_cache_cfg = cfg_key
+        sent = self._stream_cache.get(query, "miss")
+        if sent is None:          # known not-streamable: skip the re-plan
+            return None
+        t_start = time.perf_counter()
+        if sent == "miss":
+            plan = self.plan(query)
+            jobs = streaming.find_streaming_jobs(
+                plan, lambda t: self._est_rows.get(t, 0),
+                self.config.out_of_core_min_rows)
+            if not jobs:
+                self._stream_cache[query] = None
+                return None
+            groups = streaming.plan_scan_groups(jobs,
+                                                self.config.shared_scan)
+            # ONE executor serves every group of every job, kept across
+            # repeated executions: groups run sequentially, its scan cache
+            # uploads each small table once, and each group's slot enters
+            # it under the group's morsel key while the group streams
+            sent = {"plan": plan, "jobs": jobs, "groups": groups,
+                    "exec": self._new_executor(jit_plans=True),
+                    "gstates": [{"cqs": None, "ents": None, "fused": False,
+                                 "slot": None, "dicts": None}
+                                for _ in groups]}
+            self._stream_cache[query] = sent
+
+        plan, jobs, groups = sent["plan"], sent["jobs"], sent["groups"]
+        ex = sent["exec"]
+        ex.query_label = self._active_label
+        pstats = {"re_records": 0, "captures": 0, "bytes_uploaded": 0,
+                  "upload_ms": 0.0, "stage_ms": 0.0, "stage_wait_ms": 0.0,
+                  "graph_ms": 0.0, "captured_launches": {},
+                  "graph_launches": {}}
+        morsels_per_table: dict[str, int] = {}
+        host_decode_ms: dict[str, float] = {}
+        prefetch_errs: list[str] = []
+        fused_groups = 0
+        total_morsels = 0
+        fallbacks: list[str] = []
+
+        def refuse(reason: str) -> None:
+            for gstate in sent["gstates"]:
+                _close_group(gstate)
+            self._stream_cache[query] = None
+            self._stream_refused[query] = reason
+
+        partials: list[list] = [[] for _ in jobs]
+        with ex.on_stream():
+            for ji, job in enumerate(jobs):
+                for branch in job.branches:
+                    if branch.big_table is None:
+                        # no big scan in this branch: one-shot in-core
+                        # partial on the card
+                        partials[ji].append(arrow_bridge.to_arrow(
+                            self._incore_partial(ex, branch)))
+                        fallbacks += ex.fallback_nodes
+            for group, gstate in zip(groups, sent["gstates"]):
+                sinks = [(jobs[ji], partials[ji]) for ji, _bi in group.members]
+                out = self._stream_group(group, ex, gstate, sinks,
+                                         prefetch_errs, pstats)
+                if isinstance(out, str):
+                    refuse(out)
+                    return None     # not device-runnable: in-core path
+                morsels_run, host_ms = out
+                total_morsels += morsels_run
+                fused_groups += 1 if gstate["fused"] else 0
+                morsels_per_table[group.table] = \
+                    morsels_per_table.get(group.table, 0) + morsels_run
+                host_decode_ms[group.table] = round(
+                    host_decode_ms.get(group.table, 0.0) + host_ms, 3)
+        stream_s = time.perf_counter() - t_start
+        f_t0 = time.perf_counter()
+        mapping: dict = {}
+        for ji, job in enumerate(jobs):
+            merged = arrow_bridge.from_arrow(
+                pa.concat_tables(partials[ji], promote_options="permissive"),
+                self._dec_as_int())
+            mat = MaterializedNode(table=merged, label="streamed-partials",
+                                   out_names=list(job.partial_names),
+                                   out_dtypes=list(job.partial_dtypes))
+            sub_res = Executor(self.load_table).execute(job.build_final(mat))
+            mat_node = MaterializedNode(
+                table=sub_res, label="streamed-agg",
+                out_names=list(job.agg.out_names),
+                out_dtypes=list(job.agg.out_dtypes))
+            if job.join_patch is not None:
+                # semi/anti build side: probe the materialized key set
+                keys = [BCol(job.agg.out_dtypes[i], i, job.agg.out_names[i])
+                        for i in range(len(job.join_patch.right_keys))]
+                mapping[id(job.join_patch)] = {"right": mat_node,
+                                               "right_keys": keys}
+            else:
+                mapping[id(job.agg)] = mat_node
+        final_plan = streaming.substitute_nodes(plan, mapping)
+        result = Executor(self.load_table).execute(final_plan)
+        finalize_ms = (time.perf_counter() - f_t0) * 1000
+        wall_s = time.perf_counter() - t_start
+        self.last_fallbacks = fallbacks
+        stage_ms = pstats["stage_ms"]
+        self.last_stats = {
+            "mode": "streamed",
+            "jobs": len(jobs),
+            "morsels": total_morsels,
+            "morsel_rows": self.config.chunk_rows,
+            "re_records": pstats["re_records"],
+            "shared_scan": bool(self.config.shared_scan),
+            "scan_passes": len(groups),
+            "tables_streamed": len(morsels_per_table),
+            "branches_served": sum(len(g.members) for g in groups),
+            "fused_groups": fused_groups,
+            "bytes_uploaded": pstats["bytes_uploaded"],
+            "morsels_per_table": morsels_per_table,
+            "host_decode_ms": host_decode_ms,
+            "prefetch_error_details": prefetch_errs,
+            "fallbacks": list(fallbacks),
+            # the port's own: graph captures in this pass, the host's merge
+            # and finalize after the last morsel, the copies' time and the
+            # share of staging (decode + copy) hidden under the runs
+            "captures": pstats["captures"],
+            "finalize_ms": round(finalize_ms, 3),
+            "stream_ms": round(stream_s * 1000, 3),
+            "upload_ms": round(pstats["upload_ms"], 3),
+            "stage_ms": round(stage_ms, 3),
+            "stage_hidden_share": (1.0 - pstats["stage_wait_ms"] / stage_ms)
+            if stage_ms > 0 else None,
+            "graph_ms": round(pstats["graph_ms"], 3),
+            # CUDA kernel launches made while capturing this pass's graphs,
+            # and those its graph replays ran (a replay calls no wrapper)
+            "captured_launches": pstats["captured_launches"],
+            "graph_launches": pstats["graph_launches"],
+            # device busy share of the pass: CUDA-event time of the graph
+            # replays over the wall (None on the CPU)
+            "busy_share": pstats["graph_ms"] / 1000 / wall_s
+            if self.device.type == "cuda" else None,
+        }
+        return result
+
+    def _incore_partial(self, ex, branch) -> Table:
+        """One-shot partial aggregate for a branch without a big scan, on
+        the card through the executor's unit lifecycle."""
+        from .torch_backend.compiled import plan_fingerprint
+        from .torch_backend.device import to_host
+        key = ("stream-incore", plan_fingerprint(branch.partial_plan))
+        return to_host(ex.run_query(key, lambda: branch.partial_plan))
+
+    def _combine_partials(self, job, partials: list) -> pa.Table:
+        """Re-aggregate accumulated partial tables into one (partial-schema
+        preserving; associative, so repeatable)."""
+        from .plan import MaterializedNode
+        merged = arrow_bridge.from_arrow(
+            pa.concat_tables(partials, promote_options="permissive"),
+            self._dec_as_int())
+        mat = MaterializedNode(table=merged, label="stream-compact",
+                               out_names=list(job.partial_names),
+                               out_dtypes=list(job.partial_dtypes))
+        return arrow_bridge.to_arrow(
+            Executor(self.load_table).execute(job.build_combine(mat)))
+
+    def _stream_group(self, group, ex, state: dict, sinks: list,
+                      prefetch_errs: list, pstats: dict):
+        """Morsel loop for one shared-scan group. ONE morsel iterator and
+        ONE staged copy per morsel serve EVERY member branch: a worker
+        thread decodes morsel k+1 and copies it to the slot's staging
+        buffer while the card runs morsel k from the slot. A group within
+        the fusion budget records its member plans under one schedule
+        (record_plans) and replays them as ONE CUDA graph per morsel;
+        larger groups run per-member programs over the same slot. Every
+        cap decision is inflated to the morsel bound
+        (streaming.inflate_schedule), so one program serves every morsel;
+        a morsel that outgrows it (ReplayMismatch) runs eagerly, counted in
+        re_records. Before each replay the slot's string dictionaries are
+        checked against the ones the programs were recorded with; a new
+        dictionary records again (re_records), since a graph replays the
+        lookup tables of its capture. `sinks[i]` is (job, partials_list)
+        for member i; partials compact in the loop past
+        stream_compact_rows. Staging-thread failures are recorded into
+        `prefetch_errs` and the morsel restages synchronously. Returns
+        (morsels, host decode ms), or a reason string when some member is
+        not device-runnable."""
+        from . import streaming
+        from .torch_backend.compiled import CompiledQuery, ReplayMismatch
+        from .torch_backend.device import MorselSlot, bucket, to_host
+
+        morsel_rows = self.config.chunk_rows
+        mkey = group.morsel_key
+        fuse_max = self.config.stream_fusion_max_branches
+        fuse = len(group.plans) > 1 and \
+            (fuse_max <= 0 or len(group.plans) <= fuse_max)
+        if state["slot"] is None:
+            state["slot"] = MorselSlot(group.columns, group.dtypes,
+                                       bucket(morsel_rows), ex.device)
+        slot = state["slot"]
+        label = f"{self._active_label}/morsel:{group.table}"
+
+        def str_dicts() -> list:
+            return [c.dictionary for c in slot.table.cols
+                    if c.dtype == "str"]
+
+        def record_first():
+            """Record the members' schedule on the slot's morsel and build
+            their programs; a fallback reason when a member falls back."""
+            ex.fallback_nodes = []
+            if fuse:
+                _outs, decisions, scan_keys = ex.record_plans(group.plans)
+                if ex.fallback_nodes:
+                    return f"host fallback: {ex.fallback_nodes}"
+                state["cqs"] = [CompiledQuery(
+                    list(group.plans),
+                    streaming.inflate_schedule(decisions, morsel_rows),
+                    scan_keys, ex, label=label)]
+                state["ents"] = [{"scan_keys": scan_keys}]
+            else:
+                cqs, ents = [], []
+                for bi, p in enumerate(group.plans):
+                    _out, decisions, scan_keys = ex.record_plan(p)
+                    if ex.fallback_nodes:
+                        return f"host fallback: {ex.fallback_nodes}"
+                    cqs.append(CompiledQuery(
+                        p, streaming.inflate_schedule(decisions,
+                                                      morsel_rows),
+                        scan_keys, ex, label=f"{label}#{bi}"))
+                    ents.append({"scan_keys": scan_keys})
+                state["cqs"], state["ents"] = cqs, ents
+            state["fused"] = fuse
+            state["dicts"] = str_dicts()
+            return None
+
+        def run_one(cq, ent):
+            st: dict = {}
+            out = cq.run(ex._scans_for(ent), stats=st)
+            pstats["captures"] += 1 if "capture_s" in st else 0
+            _add(pstats["captured_launches"], st.get("captured_launches"))
+            if "graph_ms" in st:        # a graph replay ran its kernels
+                pstats["graph_ms"] += st["graph_ms"]
+                _add(pstats["graph_launches"], cq.captured_launches)
+            return out
+
+        def run_members() -> list:
+            """Every member program against the slot: one fused run, or
+            per-member runs; member outputs in group.plans order."""
+            try:
+                if state["fused"]:
+                    return list(run_one(state["cqs"][0], state["ents"][0]))
+                return [run_one(cq, ent)
+                        for cq, ent in zip(state["cqs"], state["ents"])]
+            except ReplayMismatch:
+                # the morsel outgrew the inflated schedule: run it eagerly
+                pstats["re_records"] += 1
+                if state["fused"]:
+                    return ex.record_plans(group.plans)[0]
+                return [ex.record_plan(p)[0] for p in group.plans]
+
+        timing = {"host_ms": 0.0}
+
+        def pull(it):
+            """The next morsel: the host's Arrow->engine decode (IO,
+            dictionaries, validity), timed."""
+            t0 = time.perf_counter()
+            m = next(it, None)
+            timing["host_ms"] += (time.perf_counter() - t0) * 1000.0
+            return m if m is None or m.names == list(group.columns) \
+                else m.select(list(group.columns))
+
+        def stage(m) -> None:
+            t0 = time.perf_counter()
+            pstats["upload_ms"] += slot.stage(m)
+            pstats["bytes_uploaded"] += slot.bytes
+            pstats["stage_ms"] += (time.perf_counter() - t0) * 1000.0
+
+        staged: dict = {}
+        worker = None
+        count = 0
+        done = False
+        try:
+            it = iter(self.iter_morsels(group.table, group.columns,
+                                        morsel_rows))
+            t0 = time.perf_counter()
+            morsel = pull(it)
+            pstats["stage_ms"] += (time.perf_counter() - t0) * 1000.0
+            if morsel is not None:
+                stage(morsel)
+            # the first morsel's decode and copy are in no run's shadow
+            pstats["stage_wait_ms"] += (time.perf_counter() - t0) * 1000.0
+            while morsel is not None:
+                ex._scan_cache[mkey] = slot.load()
+                if state["cqs"] is not None and not _same_dicts(
+                        state["dicts"], str_dicts()):
+                    # a new string dictionary: record again on this morsel
+                    pstats["re_records"] += 1
+                    state["cqs"] = None
+                if state["cqs"] is None:
+                    reason = record_first()
+                    if reason is not None:
+                        return reason
+
+                def work():
+                    t_w = time.perf_counter()
+                    try:
+                        m = pull(it)
+                    except BaseException as e:   # the source failed
+                        staged["source_err"] = e
+                        return
+                    staged["morsel"] = m
+                    staged["pull_ms"] = (time.perf_counter() - t_w) * 1000
+                    if m is None:
+                        return
+                    try:
+                        stage(m)
+                    except BaseException as e:  # surfaced via prefetch_errs
+                        staged["err"] = e
+                # stage the NEXT morsel concurrently with this run
+                worker = threading.Thread(target=work, daemon=True)
+                worker.start()
+                outs = run_members()
+                for (job, plist), out in zip(sinks, outs):
+                    plist.append(arrow_bridge.to_arrow(to_host(out)))
+                    if sum(p.num_rows for p in plist) > \
+                            self.config.stream_compact_rows:
+                        plist[:] = [self._combine_partials(job, plist)]
+                count += 1
+                t_j = time.perf_counter()
+                worker.join()
+                worker = None
+                pstats["stage_wait_ms"] += (time.perf_counter() - t_j) * 1000
+                pstats["stage_ms"] += staged.pop("pull_ms", 0.0)
+                if "source_err" in staged:
+                    raise staged.pop("source_err")
+                morsel = staged.pop("morsel")
+                err = staged.pop("err", None)
+                if err is not None:
+                    prefetch_errs.append(f"{type(err).__name__}: {err}")
+                    t_s = time.perf_counter()
+                    stage(morsel)
+                    pstats["stage_wait_ms"] += \
+                        (time.perf_counter() - t_s) * 1000
+            done = True
+        finally:
+            # free every morsel buffer even on a mid-stream failure: the
+            # slot leaves the executor's scan cache, and on a failure the
+            # slot itself and its programs go (a later run starts cold)
+            if worker is not None:
+                worker.join()
+            ex._scan_cache.pop(mkey, None)
+            if not done:
+                _close_group(state)
+        if count == 0:
+            _close_group(state)
+            return "empty source"   # the in-core path handles it
+        return count, timing["host_ms"]
+
+
+def _same_dicts(recorded: list, current: list) -> bool:
+    """Whether the slot's string dictionaries are the ones a program was
+    recorded with (the same object, or equal values)."""
+    if len(recorded) != len(current):
+        return False
+    for a, b in zip(recorded, current):
+        if a is b:
+            continue
+        if a is None or b is None or len(a) != len(b) or \
+                not np.array_equal(np.asarray(a, dtype=object),
+                                   np.asarray(b, dtype=object)):
+            return False
+    return True
+
+
+def _add(total: dict, counts: Optional[dict]) -> None:
+    for k, v in (counts or {}).items():
+        total[k] = total.get(k, 0) + v
+
+
+def _close_group(state: dict) -> None:
+    """Drop a scan group's programs and close its morsel slot."""
+    state["cqs"] = state["ents"] = None
+    if state.get("slot") is not None:
+        state["slot"].close()
+        state["slot"] = None

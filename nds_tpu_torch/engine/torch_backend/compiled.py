@@ -224,13 +224,37 @@ def _unflat(t: DTable, flat: list) -> DTable:
     return DTable(list(t.names), cols, flat[0])
 
 
+def _flat_out(out) -> list:
+    """The tensors of a program's output: one DTable, or a tuple of them
+    (a multi-plan program), in order."""
+    if isinstance(out, tuple):
+        return [x for t in out for x in _flat(t)]
+    return _flat(out)
+
+
+def _unflat_out(out, flat: list):
+    if not isinstance(out, tuple):
+        return _unflat(out, flat)
+    tables, i = [], 0
+    for t in out:
+        n = 1 + 2 * len(t.cols)
+        tables.append(_unflat(t, flat[i:i + n]))
+        i += n
+    return tuple(tables)
+
+
 class CompiledQuery:
     """One unit plan replayed from its recorded capacity schedule.
 
     Scans enter as a dict keyed by scan key (first-touch order in
     ``scan_keys``) and hoisted literals as a parameter vector, so every
     stream of a template replays the same program. ``owner`` is the
-    executor whose scans, stream and graph pool a capture uses."""
+    executor whose scans, stream and graph pool a capture uses.
+
+    ``plan`` may be a LIST of plans (a shared-scan morsel group, recorded
+    by TorchExecutor.record_plans): the plans replay in order under one
+    schedule, with the memo reset between them as in the record pass, into
+    one CUDA graph; run() then returns a tuple of DTables."""
 
     def __init__(self, plan, decisions: list, scan_keys: tuple, owner,
                  param_dtypes: tuple = (), label: str = "",
@@ -256,6 +280,7 @@ class CompiledQuery:
         self._checks = None
         self._ptrs = None
         self._specs_at_capture = None
+        self.captured_launches: dict = {}
         self._prepared: dict = {}        # stats of prepare(), for the run
 
     @property
@@ -269,7 +294,14 @@ class CompiledQuery:
         rec = Recorder("replay", self.decisions)
         ex = TorchExecutor(_no_load, self.device, gpu_kernels=self.gpu_ops,
                            recorder=rec, scan_tables=scans, params=params)
-        out = ex.execute(self.plan)
+        if isinstance(self.plan, (list, tuple)):
+            outs = []
+            for p in self.plan:
+                ex._memo = {}
+                outs.append(ex.execute(p))
+            out = tuple(outs)
+        else:
+            out = ex.execute(self.plan)
         if rec.idx != len(rec.decisions):
             raise NotJittable("decision schedule length drift")
         if ex.fallback_nodes:
@@ -310,9 +342,10 @@ class CompiledQuery:
 
     def run(self, scans: dict, values: tuple = (),
             stats: Optional[dict] = None,
-            keep_device: bool = False) -> DTable:
-        """One run; returns the output DTable, on the host (CPU tensors)
-        unless ``keep_device``. Raises ReplayMismatch when a check fails."""
+            keep_device: bool = False):
+        """One run; returns the output DTable (a tuple of them for a list of
+        plans), on the host (CPU tensors) unless ``keep_device``. Raises
+        ReplayMismatch when a check fails."""
         scans = self._args(scans, values)
         first = self._first
         t1 = time.perf_counter()
@@ -393,7 +426,11 @@ class CompiledQuery:
         reserved0 = torch.cuda.memory_reserved(self.device)
         before = dict(_ck.LAUNCHES)
         graph = torch.cuda.CUDAGraph()
-        graph.capture_begin(pool=self.owner.graph_pool())
+        # thread-local: another thread's CUDA calls (the streamed path's
+        # staging thread copies and waits on its own stream) must not
+        # invalidate this capture
+        graph.capture_begin(pool=self.owner.graph_pool(),
+                            capture_error_mode="thread_local")
         try:
             with uploads_active(self._uploads):
                 out, checks = self._replay(scans, self._slots)
@@ -406,16 +443,17 @@ class CompiledQuery:
         graph.capture_end()
         self._check_uploads_used()
         self._graph, self._out, self._checks = graph, out, checks
+        # a graph's replays call no wrapper: the capture's calls are the
+        # launches every replay makes
+        self.captured_launches = {k: _ck.LAUNCHES[k] - before[k]
+                                  for k in _ck.LAUNCHES}
         self._ptrs = [t.data_ptr() for k in self.scan_keys
                       for t in _flat(scans[k])]
         self._specs_at_capture = self._specs(scans)
         return {"capture_s": round(time.perf_counter() - t0, 4),
                 "pool_growth_bytes": torch.cuda.memory_reserved(self.device)
                 - reserved0,
-                # a graph's replays call no wrapper: the capture's calls
-                # are the launches it replays
-                "captured_launches": {k: _ck.LAUNCHES[k] - before[k]
-                                      for k in _ck.LAUNCHES}}
+                "captured_launches": dict(self.captured_launches)}
 
     def _run_graph(self, scans: dict, values: tuple, keep_device: bool):
         stream = self.owner.stream
@@ -442,11 +480,11 @@ class CompiledQuery:
             e0.record()
             self._graph.replay()
             e1.record()
-            flat = _flat(self._out)
+            flat = _flat_out(self._out)
             if keep_device:
                 # segment outputs leave the shared graph pool, which the
                 # next replay of any graph may overwrite
-                out = _unflat(self._out, [t.clone() for t in flat])
+                out = _unflat_out(self._out, [t.clone() for t in flat])
                 checks_host = self._checks.cpu().tolist()
             else:
                 hosts = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -454,7 +492,7 @@ class CompiledQuery:
                 for h, t in zip(hosts, flat + [self._checks]):
                     h.copy_(t, non_blocking=True)
                 stream.synchronize()        # the run's one host sync
-                out = _unflat(self._out, hosts[:-1])
+                out = _unflat_out(self._out, hosts[:-1])
                 checks_host = hosts[-1].tolist()
         extra["graph_ms"] = e0.elapsed_time(e1)
         return out, checks_host, extra

@@ -12,12 +12,18 @@ product of its parts' (``CrossDict``), and host-to-device constants go
 through the replayed program's ``Uploads``, so that a CUDA graph captures
 no host copy.
 
+The streamed path stages each morsel into a fixed device slot
+(``MorselSlot``): pinned host buffers, a copy stream, and one staging
+buffer from which the morsel is copied into the slot on the compute
+stream, so that a CUDA graph captured over the slot replays every morsel.
+
 Not in this slice: the packed narrow-lane upload layout and encoded
 (codebook) columns of the streamed path.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, replace
 from typing import Optional
@@ -136,6 +142,155 @@ def to_host(dt: DTable) -> Table:
                            None if bool(valid.all()) else valid,
                            dictionary))
     return Table(list(dt.names), cols)
+
+
+def device_bytes(dt: Optional[DTable]) -> int:
+    """Device bytes held by a table (its alive mask, data and validity)."""
+    if dt is None:
+        return 0
+    tensors = [dt.alive] + [x for c in dt.cols for x in (c.data, c.valid)]
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def free_dtable(dt: Optional[DTable]) -> None:
+    """Release a table's buffers now: the table object gives up its
+    tensors, so that a holder of the object no longer keeps them alive (the
+    caching allocator takes a block back once its last tensor is gone)."""
+    if dt is None:
+        return
+    dt.cols = []
+    dt.alive = dt.alive.new_empty(0)
+
+
+# -- the streamed path's morsel slot -------------------------------------------
+
+#: slots not yet closed (MorselSlot.close); the streamed path closes a
+#: group's slot with its programs, and on any failure mid-stream
+_OPEN_SLOTS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+class MorselSlot:
+    """A scan group's fixed device slot for its morsels.
+
+    ``table`` is the DTable the group's programs read (its scan key in the
+    executor's scan cache): ``capacity`` rows per column, at addresses that
+    stay the same for every morsel, so that one CUDA graph captured over it
+    replays every morsel. A morsel is staged in two steps:
+
+    - ``stage`` (any thread): the host Table's columns go into pinned host
+      buffers, padded to capacity with ``alive`` false past the morsel's
+      rows (as ``to_device`` pads), and are copied on a copy stream of the
+      slot's own into one device staging buffer. The copy waits on the
+      event recorded after the last ``load``, so that it never overwrites
+      the staging buffer before the slot has taken it;
+    - ``load`` (the compute thread, on the executor's stream, after the
+      previous morsel's run): staging buffer -> slot, device to device,
+      and the morsel's string dictionaries go onto the slot's columns.
+
+    On the CPU the staging buffer is host memory and no stream is used."""
+
+    def __init__(self, names: list, dtypes: list, capacity: int, device):
+        self.device = torch.device(device)
+        self.capacity = capacity
+        cuda = self.device.type == "cuda"
+
+        def alloc(dev, pin=False):
+            data = [torch.zeros(capacity, dtype=phys_dtype(d), device=dev,
+                                pin_memory=pin) for d in dtypes]
+            valid = [torch.zeros(capacity, dtype=torch.bool, device=dev,
+                                 pin_memory=pin) for _ in dtypes]
+            alive = torch.zeros(capacity, dtype=torch.bool, device=dev,
+                                pin_memory=pin)
+            return data + valid + [alive]
+        self._slot = alloc(self.device)
+        k = len(dtypes)
+        self.table = DTable(list(names), [
+            DCol(d, self._slot[i], self._slot[k + i], None)
+            for i, d in enumerate(dtypes)], self._slot[-1])
+        self._dtypes = list(dtypes)
+        self._host = alloc("cpu", pin=cuda)
+        self._staging = alloc(self.device) if cuda else self._host
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._loaded = None         # event after the last load (CUDA)
+        self._staged: Optional[tuple] = None   # (rows, dictionaries)
+        self.bytes = device_bytes(self.table)
+        _OPEN_SLOTS.add(self)
+
+    def stage(self, morsel: Table) -> float:
+        """Put a host morsel (at most ``capacity`` rows, the slot's
+        columns in order) into the staging buffer; returns the milliseconds
+        of its host-to-device copy (CUDA events; 0.0 on the CPU)."""
+        n = morsel.num_rows
+        if n > self.capacity:
+            raise ValueError(f"morsel of {n} rows over the slot's "
+                             f"{self.capacity}")
+        k = len(self._dtypes)
+        for i, c in enumerate(morsel.columns):
+            data = np.asarray(c.data)
+            hd = self._host[i].numpy()
+            hv = self._host[k + i].numpy()
+            if c.valid is None:
+                hd[:n] = data
+                hv[:n] = True
+            else:
+                valid = c.valid
+                if c.dtype == "str":
+                    # canonical null slot for codes is 0 (valid=False
+                    # marks them)
+                    valid = valid & (data >= 0)
+                hd[:n] = np.where(valid, data, 0)
+                hv[:n] = c.valid
+            hd[n:] = 0
+            hv[n:] = False
+        ha = self._host[-1].numpy()
+        ha[:n] = True
+        ha[n:] = False
+        ms = 0.0
+        if self._copy_stream is not None:
+            with torch.cuda.stream(self._copy_stream):
+                if self._loaded is not None:
+                    self._copy_stream.wait_event(self._loaded)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for d, h in zip(self._staging, self._host):
+                    d.copy_(h, non_blocking=True)
+                e1.record()
+            # the pinned buffers are free again once the copy is done
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+        self._staged = (n, [c.dictionary for c in morsel.columns])
+        return ms
+
+    def load(self) -> DTable:
+        """The staged morsel into the slot, on the current stream; returns
+        the slot's table with the morsel's dictionaries."""
+        if self._staged is None:
+            raise RuntimeError("no morsel staged")
+        _n, dicts = self._staged
+        self._staged = None
+        for d, s in zip(self._slot, self._staging):
+            if d is not s:
+                d.copy_(s, non_blocking=True)
+        if self._copy_stream is not None:
+            self._loaded = torch.cuda.Event()
+            self._loaded.record()
+        self.table = DTable(list(self.table.names), [
+            replace(c, dictionary=dct)
+            for c, dct in zip(self.table.cols, dicts)], self.table.alive)
+        return self.table
+
+    def close(self) -> None:
+        """Give up every buffer (slot, staging, pinned host memory)."""
+        free_dtable(self.table)
+        self._slot = self._staging = self._host = []
+        self._staged = self._loaded = None
+        _OPEN_SLOTS.discard(self)
+
+
+def open_slots() -> int:
+    """Morsel slots not yet closed."""
+    return len(_OPEN_SLOTS)
 
 
 # -- compound string dictionaries (compiled replay) ---------------------------

@@ -18,8 +18,12 @@ and falls back to the numpy host executor for that node only
 replayed. On CUDA the executor runs all its work on a stream of its own,
 the one its graphs are captured on.
 
-Not in this slice: batched programs over stacked parameters, the streamed
-path's per-morsel replay, and mesh execution.
+The streamed path (engine/session.py) records a morsel group's plans with
+``record_plans`` and replays them from one morsel slot; the slot's scan
+key is kept out of the resident-scan budget and is never loaded here.
+
+Not in this slice: batched programs over stacked parameters and mesh
+execution.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from ..plan import (AggregateNode, AggSpec, BCall, BCol, BExpr, DistinctNode,
                     VirtualScanNode, WindowFunc, WindowNode,
                     deparameterize_plan, iter_plan_nodes, parameterize_plan,
                     replace_plan_nodes)
+from ..streaming import MORSEL_TABLE
 from . import compiled as _cq
 from . import cuda_kernels as _ck
 from . import exprs, kernels
@@ -519,18 +524,27 @@ class TorchExecutor:
         """Eager run that records the capacity schedule; returns (result,
         decisions, scan_keys), scan_keys in first-touch order (plan
         traversal order, the same for every stream)."""
+        outs, decisions, scan_keys = self.record_plans([plan], params)
+        return outs[0], decisions, scan_keys
+
+    def record_plans(self, plans: list, params: tuple = ()):
+        """Record several plans under ONE decision schedule (a shared-scan
+        morsel group): the plans run in order with one recorder and the
+        memo reset per plan, as CompiledQuery replays a list of plans.
+        Returns (outs, decisions, scan_keys), scan_keys the union in
+        first-touch order across the plans."""
         rec = Recorder("record")
         self._rec = rec
         self._touched_scans = {}
         old_params = self._params
         self._params = params
         try:
-            out = self._eager(plan)
+            outs = [self._eager(p) for p in plans]
         finally:
             self._rec = None
             self._params = old_params
         self._last_record_nodes = rec.nodes
-        return out, rec.decisions, tuple(self._touched_scans)
+        return outs, rec.decisions, tuple(self._touched_scans)
 
     def _run_compiled(self, cq: CompiledQuery, ent,
                       keep_device: bool = False) -> DTable:
@@ -559,7 +573,10 @@ class TorchExecutor:
     def _account_resident(self, key: str, t: DTable,
                           pinned: Optional[set] = None) -> None:
         """Track a device-resident entry; evict LRU past the budget.
-        _resident mirrors _scan_cache (stale keys pruned here)."""
+        _resident mirrors _scan_cache (stale keys pruned here). A morsel
+        slot is not counted: it is the streamed group's, which frees it."""
+        if _is_morsel(key):
+            return
         for k in [k for k in self._resident if k not in self._scan_cache]:
             del self._resident[k]
         self._resident.pop(key, None)
@@ -588,6 +605,8 @@ class TorchExecutor:
             if k not in self._scan_cache:
                 if k.startswith("seg:"):
                     raise ReplayMismatch(f"segment output miss: {k}")
+                if _is_morsel(k):     # never loaded from the big table
+                    raise RuntimeError(f"morsel slot {k!r} not staged")
                 if k not in self._scan_meta:
                     raise ReplayMismatch(f"scan meta miss: {k}")
                 table, columns, names = self._scan_meta[k]
@@ -881,6 +900,13 @@ class TorchExecutor:
     def _run_scan(self, node: ScanNode) -> DTable:
         cache_key = node.table + "//" + ",".join(node.columns)
         self._touched_scans.setdefault(cache_key)
+        if _is_morsel(cache_key):
+            # the streamed group stages each morsel into its slot; the
+            # big table itself is never loaded here
+            cached = self._scan_cache.get(cache_key)
+            if cached is None:
+                raise RuntimeError(f"morsel slot {cache_key!r} not staged")
+            return DTable(list(node.out_names), cached.cols, cached.alive)
         if cache_key not in self._scan_cache:
             if self._replay:
                 raise NotJittable(f"scan {cache_key!r} missing under trace")
@@ -1085,9 +1111,16 @@ class TorchExecutor:
             new_group = level_new_group(k)
             gid_sorted = kernels._cumsum_i32(new_group) - 1
             num_groups_t = torch.where(alive_sorted, gid_sorted, -1).max() + 1
-            # (an adopted schedule of a larger data set may plan more
-            # groups than the input has rows; the reference fails there)
-            cap_out = min(bucket(max(self._decide_cap(num_groups_t), 1)), n)
+            cap_out = bucket(max(self._decide_cap(num_groups_t), 1))
+            if cap_out > n:
+                # a replayed schedule that plans more groups than the input
+                # has rows (an adopted schedule of a larger data set, or a
+                # morsel schedule inflated to the morsel bound over a
+                # smaller input): the reference's replay fails on it (its
+                # shapes disagree); here the replay fails the schedule, and
+                # the caller records again
+                raise ReplayMismatch(f"sorted aggregation plans {cap_out} "
+                                     f"groups over {n} input rows")
             is_end = kernels.group_ends(new_group, alive_sorted)
             end_perm, _ = kernels.compaction_perm(is_end)
             sel = end_perm[:cap_out].long()
@@ -1479,6 +1512,11 @@ class TorchExecutor:
         out = DTable(self._combined_names(node, len(cols)), cols, alive_out)
         out = self._apply_residual(residual, out)
         return out, left_idx, right_rows
+
+
+def _is_morsel(key: str) -> bool:
+    """A scan key of a streamed group's morsel slot."""
+    return key.startswith(MORSEL_TABLE + "//")
 
 
 def _unit_totals(unit_stats: list, root: dict) -> dict:

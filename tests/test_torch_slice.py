@@ -8,8 +8,8 @@ result is held against nds_tpu's ``backend="jax"`` result (Pallas off;
 the XLA lowering is bit-identical to it) and its ``backend="numpy"``
 result: integer, date and decimal columns bit-identical, float columns to
 rtol 1e-9. Also here: the port imports neither jax nor nds_tpu (while
-it runs the star query, a window query and a set operation), and it never
-runs on the CPU unless asked to.
+it runs the star query in-core and streamed, a window query and a set
+operation), and it never runs on the CPU unless asked to.
 """
 import os
 import subprocess
@@ -113,9 +113,10 @@ s.register_arrow("fact", fact)
 s.register_arrow("dim", dim)
 t = s.sql(sys.argv[1])
 assert t.num_rows == 17 and not s.last_fallbacks
+star, star_table = t.to_pylist(), t
 # the compiled path too: compile+run, then a replay
 for mode in ("compile+run", "compiled"):
-    assert s.sql(sys.argv[1]).to_pylist() == t.to_pylist()
+    assert s.sql(sys.argv[1]).to_pylist() == star
     assert s.last_stats["mode"] == mode and not s.last_fallbacks
 # a window function and a set operation on the device path as well
 t = s.sql("SELECT fk, day, RANK() OVER (PARTITION BY fk ORDER BY qty) AS r, "
@@ -123,6 +124,20 @@ t = s.sql("SELECT fk, day, RANK() OVER (PARTITION BY fk ORDER BY qty) AS r, "
 assert t.num_rows == 8192 and not s.last_fallbacks
 t = s.sql("SELECT fk FROM fact WHERE qty > 50 INTERSECT SELECT dk FROM dim")
 assert 0 < t.num_rows <= 512 and not s.last_fallbacks
+# the streamed path: the fact table from Parquet, in 2048-row morsels
+import os, tempfile
+import pyarrow.parquet as pq
+path = os.path.join(tempfile.mkdtemp(), "fact.parquet")
+pq.write_table(fact, path, row_group_size=2048)
+s = nt.Session(nt.EngineConfig(out_of_core_min_rows=4096, chunk_rows=2048),
+               device="cpu")
+s.register_parquet("fact", path)
+s.register_arrow("dim", dim)
+from nds_tpu_torch.validate import table_mismatches
+for _ in range(2):
+    assert table_mismatches(s.sql(sys.argv[1]), star_table) == []
+    assert s.last_stats["mode"] == "streamed" and not s.last_fallbacks
+    assert s.last_stats["morsels"] == 4
 print("GUARD_OK", sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "nds_tpu")
                          and sys.modules[m] is not None))
