@@ -34,13 +34,20 @@ Phases, one JSON line each:
    with register_parquet on a new session (their row counts then come
    from the Parquet metadata; the other tables stay CSV);
 3d. stream_default: at the reference's defaults (48M-row threshold,
-   4,194,304-row morsels) the SF10 units that scan inventory (133.1M
+   4,194,304-row morsels, packed narrow lanes with dictionary and
+   run-length encodings) the SF10 units that scan inventory (133.1M
    rows): q21, q22, q37, q72 and q82 must stream it, 32 morsels a pass,
    and q39's two parts (no streaming job) run in-core over the whole
    table; each unit cold and three times warm, held against the numpy
    executor, which runs in two forked workers beside this phase and the
    ones after (q72's alone takes about 6 minutes), the checks at the end;
-3e. stream_lowered: phase query's queries with the threshold at 10M rows:
+3e. stream_plain: q22 and q82 as in 3d but with ``narrow_lanes=False``
+   (the plain slot: int64 data, a byte of validity a row), cold and once
+   warm, then packed again the same way (beside the same host load),
+   held against 3d's oracle results; a line sets their bytes uploaded,
+   staging and decode times and warm walls beside both packed runs', and
+   the plain runs must upload more bytes;
+3f. stream_lowered: phase query's queries with the threshold at 10M rows:
    all but 12, 38 and 87 stream store_sales (7 morsels) or catalog_sales
    (4), cold and once warm, held against phase query's oracle
    results and phase replay's in-core results. Both streamed phases fail
@@ -49,7 +56,10 @@ Phases, one JSON line each:
    report per unit the walls, morsels, bytes uploaded and the upload
    rate, the share of staging hidden under the runs, the host's decode
    and finalize, the device's busy share, re-records, captures and peak
-   memory. Launch counters zeroed just before each, read just after;
+   memory, and the wire layout (lane_spec, enc_spec, enc_bytes_saved,
+   decode sites). With narrow_lanes on, every streamed table must ride
+   packed lanes. Launch counters zeroed just before each, read just
+   after;
 4. spare slot: the first-row-per-group scatter at the largest call that
    queries 38 and 87 made, beside the reference's form of it (every row
    outside the mask on one spare slot), bit-identical;
@@ -512,6 +522,8 @@ ROW_GROUP_ROWS = 1 << 22
 #: the SF10 units that scan inventory: five stream it at the default
 #: settings, and q39's two parts find no streaming job and run in-core
 STREAM_DEFAULT = ("query21", "query22", "query37", "query72", "query82")
+#: the units phase stream_plain runs again with narrow_lanes off
+STREAM_PLAIN = ("query22", "query82")
 INCORE_DEFAULT = ("query39_part1", "query39_part2")
 #: the threshold of phase stream_lowered, over which store_sales (28.8M
 #: rows at SF10) and catalog_sales (14.4M) stream too, but not web_sales
@@ -602,7 +614,8 @@ def _streamed_fields(runs: list) -> dict:
     cold = runs[0][2]
     gbps = [r[2]["bytes_uploaded"] / r[2]["upload_ms"] / 1e6
             for r in runs[1:] if r[2].get("upload_ms")]
-    return {"morsels": cold["morsels"],
+    return {"warm_s": statistics.median(r[1] for r in runs[1:]),
+            "morsels": cold["morsels"],
             "morsels_per_table": cold["morsels_per_table"],
             "jobs": cold["jobs"], "scan_passes": cold["scan_passes"],
             "fused_groups": cold["fused_groups"],
@@ -617,14 +630,23 @@ def _streamed_fields(runs: list) -> dict:
             "re_records": [r[2]["re_records"] for r in runs],
             "captures": [r[2]["captures"] for r in runs],
             "captured_launches": cold.get("captured_launches", {}),
-            "graph_launches": runs[-1][2].get("graph_launches", {})}
+            "graph_launches": runs[-1][2].get("graph_launches", {}),
+            "narrow_lanes": cold.get("narrow_lanes"),
+            "lane_spec": cold.get("lane_spec"),
+            "enc_spec": cold.get("enc_spec"),
+            "enc_bytes_saved": cold.get("enc_bytes_saved"),
+            "decode_sites": [r[2].get("decode_sites") for r in runs],
+            "decode_rows": [r[2].get("decode_rows") for r in runs],
+            "dict_uploads": [r[2].get("dict_uploads") for r in runs]}
 
 
 def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
                      oracle=None, incore: dict | None = None,
                      incore_walls: dict | None = None,
                      preload: tuple = (), deferred: tuple = (),
-                     warm: int = WARM_PASSES):
+                     warm: int = WARM_PASSES,
+                     oracle_from: dict | None = None,
+                     every_kernel: bool = True):
     """Each (name, sql) of `units` through Session.sql(backend="torch"),
     cold and then `warm` times warm, with the launch counters zeroed
     just before the first run and read just after the last. A unit of
@@ -638,8 +660,14 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
     on the host first, so that the oracle's workers share them; the
     oracle of the units of `deferred` (in that order) starts then, in two
     workers that run beside everything after, and their lines wait for
-    it. Returns (counter totals, captured launches, a function that
-    checks and emits the deferred units and returns their lines)."""
+    it; with `oracle_from` ({unit: (result, seconds)}, which another
+    phase's finish fills) no workers start and the deferred units are
+    checked against it. With narrow_lanes on, every table a streamed run
+    streams must ride packed lanes. Each kernel must have launched in the
+    phase where `every_kernel`. Returns (counter totals, captured
+    launches, a function that checks and emits the deferred units, fills
+    the oracle store and returns their lines, the oracle store, and
+    {unit: _streamed_fields} of the streamed units)."""
     from nds_tpu_torch.validate import table_mismatches
     t0 = time.perf_counter()
     for table in preload:
@@ -647,7 +675,8 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
     sqls = dict(units)
     later = [(n, sqls[n]) for n in deferred]
     pending = oracle_async(session, [sql for _, sql in later], 2) \
-        if later else None
+        if later and oracle_from is None else None
+    store: dict = {}
     emit(f"{phase}_oracle_start", preload=list(preload),
          seconds=time.perf_counter() - t0, deferred=[n for n, _ in later])
     runs, failed = {}, []
@@ -677,7 +706,14 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
             if i > 0 and st["captures"]:
                 failed.append(f"{name} (run {i}): {st['captures']} "
                               "captures on a warm pass")
+            if session.config.narrow_lanes and \
+                    set(st["lane_spec"]) != set(st["morsels_per_table"]):
+                failed.append(f"{name} (run {i}): streamed tables "
+                              f"{sorted(st['morsels_per_table'])} but packed "
+                              f"{sorted(st['lane_spec'])}")
     totals = dict(ck.LAUNCHES)          # read just after the path
+    fields = {n: _streamed_fields(runs[n][0]) for n in runs
+              if n in streamed and runs[n][0][0][2].get("mode") == "streamed"}
 
     def check(name: str, want, oracle_s: float) -> dict:
         rr, launches = runs[name]
@@ -692,6 +728,7 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
                 if mm:
                     bad.append(f"{name} (run {i}) disagrees with its "
                                f"in-core result: {mm}")
+        store[name] = (want, oracle_s)
         line = {"unit": name, "mode": rr[0][2].get("mode"),
                 "cold_s": rr[0][1],
                 "warm_s": statistics.median(r[1] for r in rr[1:]),
@@ -699,8 +736,8 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
                 "incore_replay_s": (incore_walls or {}).get(name),
                 "rows": rr[-1][0].num_rows, "oracle_s": oracle_s,
                 "peak_mem_gb": max(r[3] for r in rr), "launches": launches}
-        if name in streamed and rr[0][2].get("mode") == "streamed":
-            line.update(_streamed_fields(rr))
+        if name in fields:
+            line.update(fields[name])
         else:
             line["modes"] = [r[2].get("mode") for r in rr]
         emit(phase, **line)
@@ -714,19 +751,22 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
     if failed:
         raise SystemExit(f"{phase}: " + "\n".join(failed))
     missing = [k for k, v in totals.items() if v == 0]
-    if missing:
+    if missing and every_kernel:
         raise SystemExit(f"{phase}: kernels never launched: {missing}")
     captured = {k: sum(ln.get("captured_launches", {}).get(k, 0)
                        for ln in lines) for k in ck.LAUNCHES}
 
     def finish() -> list:
-        if pending is None:
+        if not later:
             return []
-        pool, res = pending
         t1 = time.perf_counter()
-        got = res.get()
-        pool.close()
-        pool.join()
+        if pending is None:
+            got = [oracle_from[name] for name, _ in later]
+        else:
+            pool, res = pending
+            got = res.get()
+            pool.close()
+            pool.join()
         out = [check(name, *o) for (name, _), o in zip(later, got)]
         emit(f"{phase}_deferred_oracle", units=[n for n, _ in later],
              waited_s=time.perf_counter() - t1)
@@ -736,7 +776,7 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
             for k in captured:
                 captured[k] += ln.get("captured_launches", {}).get(k, 0)
         return out
-    return totals, captured, finish
+    return totals, captured, finish, store, fields
 
 
 def phase_stream_default(session, ck, scale: float = 1.0) -> dict:
@@ -754,14 +794,64 @@ def phase_stream_default(session, ck, scale: float = 1.0) -> dict:
     names = STREAM_DEFAULT + INCORE_DEFAULT
     units = [(n, sql) for n, sql in streams.template_units(
         stream=0, rngseed=SEED) if n in names]
-    totals, captured, finish = run_stream_units(
+    totals, captured, finish, store, fields = run_stream_units(
         session, ck, units, "stream_default", STREAM_DEFAULT,
         preload=("inventory",),
         # the longest first: q72 takes one worker, the rest the other
         deferred=("query72", "query22", "query39_part1", "query39_part2",
                   "query21", "query37", "query82"))
     emit("stream_default_launches", totals=totals)
-    return {"totals": totals, "captured": captured, "finish": finish}
+    return {"totals": totals, "captured": captured, "finish": finish,
+            "oracle": store, "fields": fields, "units": units}
+
+
+def phase_stream_plain(session, ck, default: dict) -> dict:
+    """STREAM_PLAIN as phase stream_default ran them, but with
+    narrow_lanes off (the plain slot), cold and once warm, then packed
+    again (cold, once warm) right after, so that one packed run and the
+    plain run share the host's load (the oracle's workers run beside);
+    each held against stream_default's oracle results when its finish
+    has run. One line sets the plain figures beside both packed runs',
+    and the plain runs must upload more bytes."""
+    units = [(n, sql) for n, sql in default["units"] if n in STREAM_PLAIN]
+    out = {}
+    for phase, narrow in (("stream_plain", False),
+                          ("stream_plain_packed", True)):
+        session.config.narrow_lanes = narrow
+        try:
+            out[phase] = run_stream_units(
+                session, ck, units, phase, STREAM_PLAIN,
+                deferred=STREAM_PLAIN, warm=1,
+                oracle_from=default["oracle"], every_kernel=False)
+        finally:
+            session.config.narrow_lanes = True
+    keys = ("bytes_uploaded", "warm_s", "stage_ms", "host_decode_ms",
+            "upload_gb_s", "stage_hidden_share", "busy_share", "graph_ms")
+    fields = {"stream_default": default["fields"],
+              "stream_plain": out["stream_plain"][4],
+              "stream_plain_packed": out["stream_plain_packed"][4]}
+    compare = {}
+    for name in STREAM_PLAIN:
+        compare[name] = {ph: {k: f[name].get(k) for k in keys}
+                         for ph, f in fields.items()}
+        compare[name]["packed_lane_spec"] = default["fields"][name][
+            "lane_spec"]
+        compare[name]["packed_enc_spec"] = default["fields"][name][
+            "enc_spec"]
+        plain = fields["stream_plain"][name]["bytes_uploaded"]
+        packed = fields["stream_default"][name]["bytes_uploaded"]
+        if plain <= packed:
+            raise SystemExit(f"stream_plain: {name} uploaded {plain} bytes "
+                             f"plain, not more than {packed} packed")
+    emit("stream_plain_vs_packed", **compare)
+    (t1, c1, f1, *_), (t2, c2, f2, *_) = out.values()
+    totals = {k: t1[k] + t2[k] for k in t1}
+    emit("stream_plain_launches", totals=totals)
+
+    def finish() -> list:
+        return f1() + f2()
+    return {"totals": totals, "captured": {k: c1[k] + c2[k] for k in c1},
+            "finish": finish}
 
 
 def phase_stream_lowered(session, ck, oracle, replay: dict,
@@ -774,7 +864,7 @@ def phase_stream_lowered(session, ck, oracle, replay: dict,
     cfg.chunk_rows = max(1024, int((1 << 22) * scale))
     units = query_units()
     streamed = tuple(n for n, _ in units if n not in INCORE_LOWERED)
-    totals, captured, _ = run_stream_units(
+    totals, captured, *_ = run_stream_units(
         session, ck, units, "stream_lowered", streamed, oracle=oracle,
         incore=replay["results"], incore_walls=replay["walls"],
         warm=WARM_PASSES_LOWERED)
@@ -1289,9 +1379,11 @@ def main() -> int:
         scale = args.sf / 10
         ssession = stream_session(nt, tmp, phase_transcode(tmp))
         streamed = {
-            "stream_default": phase_stream_default(ssession, ck, scale),
-            "stream_lowered": phase_stream_lowered(ssession, ck, oracle,
-                                                   replay, scale)}
+            "stream_default": phase_stream_default(ssession, ck, scale)}
+        streamed["stream_plain"] = phase_stream_plain(
+            ssession, ck, streamed["stream_default"])
+        streamed["stream_lowered"] = phase_stream_lowered(
+            ssession, ck, oracle, replay, scale)
         del ssession, oracle
         replay.pop("results")
         gc.collect()

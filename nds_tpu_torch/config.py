@@ -51,6 +51,23 @@ class EngineConfig:
     # multi-output program per morsel (one CUDA graph); larger groups run
     # per-branch programs over the same slot. 0 = fuse unconditionally
     stream_fusion_max_branches: int = 16
+    # narrow-lane packed uploads: a streamed morsel rides one packed byte
+    # buffer, each column at its least width (u8/u16/u32/i32 lanes chosen
+    # once per scan group from table-wide min/max stats, validity one bit
+    # a row; device.plan_lanes/pack_table), unpacked on the card inside the
+    # morsel's program; a column whose range fits 32 bits executes on int32
+    # and widens to int64 only where it is summed or computed with.
+    # False: the plain slot (int64 data, one byte of validity a row)
+    narrow_lanes: bool = True
+    # encoded execution (needs narrow_lanes): low-cardinality int, date
+    # and decimal columns ride dictionary codes on u8/u16 lanes with a
+    # sorted host codebook (uploaded once per scan group), clustered ones
+    # (value, run length) pairs expanded on the card; chosen once per
+    # group from cardinality and run stats (Session.column_enc_stats).
+    # Filters, join and group keys and sorts run on the codes;
+    # device.decode_col gives values where arithmetic, aggregates and
+    # outputs need them
+    encoded_exec: bool = True
     # torch device for the device path: None = "cuda"
     device: Optional[str] = None
     # compiled replay: a unit's first run records its capacity schedule,

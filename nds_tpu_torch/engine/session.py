@@ -15,10 +15,12 @@ Out-of-core (``out_of_core``, on by default): every maximal streamable
 aggregate over a table above ``out_of_core_min_rows`` streams that table
 through the card in ``chunk_rows`` morsels (``_sql_streaming``); a plan
 with no streaming job runs in-core, whatever its scans' sizes.
-``last_stats["mode"]`` is "streamed" for a streamed run.
+``last_stats["mode"]`` is "streamed" for a streamed run. A morsel rides
+one packed buffer (``narrow_lanes``) with dictionary and run-length
+columns (``encoded_exec``), its lanes and encodings chosen once per scan
+group from the table's stats (``column_stats``, ``column_enc_stats``).
 
-Not in this slice: the streamed path's narrow-lane packed uploads and
-encoded execution, sharded morsels, feedback-adapted schedules and
+Not in this slice: sharded morsels, feedback-adapted schedules and
 preemption; the result cache, query log, system tables, DML and EXPLAIN
 ANALYZE.
 """
@@ -66,6 +68,13 @@ class Session:
         # table -> callable(columns) yielding arrow tables/batches in order,
         # the morsel source of a streamed scan
         self._batch_sources: dict[str, Callable] = {}
+        # table -> callable() giving {column: (lo, hi)} value ranges, and
+        # table -> callable(column) giving its encoding stats; their
+        # results cached per registration (column_stats, column_enc_stats)
+        self._stats_sources: dict[str, Callable] = {}
+        self._enc_stats_sources: dict[str, Callable] = {}
+        self._col_stats: dict[str, dict] = {}
+        self._enc_stats: dict[str, dict] = {}
         # streamed-path state per query: rewritten plans, scan groups, the
         # stream executor, compiled morsel programs and slots (None: the
         # query has no streaming job); valid for one _stream_config_key
@@ -101,15 +110,24 @@ class Session:
             c for c in unique_cols if c in have)
 
     def _registered(self, name: str, names, dtypes, est_rows: int,
-                    unique_cols, loader: Callable,
-                    batches: Callable) -> None:
+                    unique_cols, loader: Callable, batches: Callable,
+                    stats: Optional[Callable] = None,
+                    enc_stats: Optional[Callable] = None) -> None:
         self._schemas[name] = (list(names), list(dtypes))
         self._set_unique_cols(name, names, unique_cols)
         self._est_rows[name] = est_rows
         self._loaders[name] = loader
         self._batch_sources[name] = batches
+        for src, fn in ((self._stats_sources, stats),
+                        (self._enc_stats_sources, enc_stats)):
+            if fn is None:
+                src.pop(name, None)
+            else:
+                src[name] = fn
         for k in [k for k in self._cache if k[0] == name]:
             del self._cache[k]
+        self._col_stats.pop(name, None)
+        self._enc_stats.pop(name, None)
         self._generation += 1
 
     # -- registration -------------------------------------------------------
@@ -125,9 +143,14 @@ class Session:
 
         def batches(columns, t=table):
             yield t.select(list(columns)) if columns else t
-        self._registered(name, names, dtypes,
-                         est_rows if est_rows is not None else table.num_rows,
-                         unique_cols, load, batches)
+        self._registered(
+            name, names, dtypes,
+            est_rows if est_rows is not None else table.num_rows,
+            unique_cols, load, batches,
+            stats=lambda t=table, dec=dec:
+            arrow_bridge.table_column_stats(t, dec),
+            enc_stats=lambda col, t=table, dec=dec:
+            arrow_bridge.column_enc_stat(t.column(col), dec))
 
     def register_parquet(self, name: str, path: str,
                          est_rows: Optional[int] = None,
@@ -155,8 +178,15 @@ class Session:
         def batches(columns, ds=dataset):
             cols = list(columns) if columns is not None else None
             yield from ds.to_batches(columns=cols)
-        self._registered(name, names, dtypes, est_rows, unique_cols, load,
-                         batches)
+        # value ranges from the row groups' metadata (no data read);
+        # encoding stats need the values: one read of the column
+        self._registered(
+            name, names, dtypes, est_rows, unique_cols, load, batches,
+            stats=lambda ds=dataset, dec=dec:
+            arrow_bridge.parquet_column_stats(list(ds.files), dec),
+            enc_stats=lambda col, ds=dataset, dec=dec:
+            arrow_bridge.column_enc_stat(
+                ds.to_table(columns=[col]).column(col), dec))
 
     def register_csv(self, name: str, path: str, schema: pa.Schema,
                      est_rows: Optional[int] = None, delimiter: str = "|",
@@ -189,6 +219,42 @@ class Session:
         self._registered(name, names, dtypes,
                          est_rows if est_rows is not None else 10000,
                          unique_cols, load, batches)
+
+    def column_stats(self, name: str) -> dict:
+        """{column: (lo, hi)} value ranges of a registered table in engine
+        units (scaled ints for decimals, epoch days for dates); {} where
+        its registration has no stats source (CSV). Computed once per
+        registration; a scan group's lanes come from them."""
+        if name not in self._col_stats:
+            src = self._stats_sources.get(name)
+            stats = {}
+            if src is not None:
+                try:
+                    stats = src() or {}
+                except Exception:
+                    stats = {}  # stats are an optimization, never a failure
+            self._col_stats[name] = stats
+        return self._col_stats[name]
+
+    def column_enc_stats(self, name: str, columns=None) -> dict:
+        """{column: {"distinct": sorted int64 array or None, "runs": int,
+        "rows": int}} encoding stats of (some of) a registered table's
+        columns in engine units; {} where its registration has no source.
+        Computed once per column and registration, for the columns a scan
+        group streams; a group's encodings come from them."""
+        src = self._enc_stats_sources.get(name)
+        if src is None:
+            return {}
+        if columns is None:
+            columns = self._schemas.get(name, ([], []))[0]
+        cache = self._enc_stats.setdefault(name, {})
+        for c in columns:
+            if c not in cache:
+                try:
+                    cache[c] = src(c)
+                except Exception:
+                    cache[c] = None  # stats are an optimization, never fatal
+        return {c: cache[c] for c in columns if cache.get(c)}
 
     def iter_morsels(self, name: str, columns: list[str], rows: int):
         """Yield host Tables of at most `rows` rows each, WITHOUT
@@ -318,6 +384,7 @@ class Session:
                 cfg.stream_compact_rows, cfg.shared_scan,
                 cfg.stream_fusion_max_branches, cfg.late_materialization,
                 cfg.late_mat_min_rows, cfg.decimal_physical,
+                cfg.narrow_lanes, cfg.encoded_exec,
                 tuple(sorted(cfg.gpu_kernels)))
 
     def _drop_stream_cache(self) -> None:
@@ -344,6 +411,8 @@ class Session:
         jobs were found)."""
         from . import streaming
         from .plan import BCol, MaterializedNode
+        from .torch_backend.device import (bucket, decode_stats, enc_tag,
+                                           enc_lane_bytes, lane_bytes)
 
         cfg_key = self._stream_config_key()
         if self._stream_cache_cfg != cfg_key:
@@ -363,6 +432,11 @@ class Session:
                 return None
             groups = streaming.plan_scan_groups(jobs,
                                                 self.config.shared_scan)
+            if self.config.narrow_lanes and \
+                    bucket(self.config.chunk_rows) % 64 == 0:
+                # (a packed slot needs a capacity that is a multiple of
+                # 64; a smaller morsel stays plain)
+                self._plan_layouts(groups)
             # ONE executor serves every group of every job, kept across
             # repeated executions: groups run sequentially, its scan cache
             # uploads each small table once, and each group's slot enters
@@ -375,6 +449,8 @@ class Session:
             self._stream_cache[query] = sent
 
         plan, jobs, groups = sent["plan"], sent["jobs"], sent["groups"]
+        dec0 = decode_stats()
+        enc_bytes_saved = 0
         ex = sent["exec"]
         ex.query_label = self._active_label
         pstats = {"re_records": 0, "captures": 0, "bytes_uploaded": 0,
@@ -418,6 +494,11 @@ class Session:
                     morsels_per_table.get(group.table, 0) + morsels_run
                 host_decode_ms[group.table] = round(
                     host_decode_ms.get(group.table, 0.0) + host_ms, 3)
+                if group.encodings is not None:
+                    cap = bucket(self.config.chunk_rows)
+                    enc_bytes_saved += morsels_run * (
+                        lane_bytes(group.plain_lanes, cap) -
+                        enc_lane_bytes(group.lanes, cap, group.encodings))
         stream_s = time.perf_counter() - t_start
         f_t0 = time.perf_counter()
         mapping: dict = {}
@@ -447,6 +528,7 @@ class Session:
         wall_s = time.perf_counter() - t_start
         self.last_fallbacks = fallbacks
         stage_ms = pstats["stage_ms"]
+        dec1 = decode_stats()
         self.last_stats = {
             "mode": "streamed",
             "jobs": len(jobs),
@@ -460,6 +542,26 @@ class Session:
             "fused_groups": fused_groups,
             "bytes_uploaded": pstats["bytes_uploaded"],
             "morsels_per_table": morsels_per_table,
+            # the morsels' wire layout: each streamed column's lane and
+            # encoding, the bytes the encodings saved over the lanes alone,
+            # and the decode sites (and the column slots they decoded)
+            # the pass's record passes and captures met
+            "narrow_lanes": bool(self.config.narrow_lanes),
+            "lane_spec": {g.table: dict(zip(g.columns, g.lanes))
+                          for g in groups if g.lanes is not None},
+            "encoded_exec": bool(self.config.encoded_exec
+                                 and self.config.narrow_lanes),
+            "enc_spec": {g.table: dict(zip(g.columns,
+                                           map(enc_tag, g.encodings)))
+                         for g in groups if g.encodings is not None}
+            or None,
+            "enc_bytes_saved": enc_bytes_saved or None,
+            "decode_sites": dec1["sites"] - dec0["sites"],
+            "decode_rows": dec1["rows"] - dec0["rows"],
+            # codebooks uploaded to the card, and decode sites that found
+            # theirs there already
+            "dict_uploads": dec1["book_uploads"] - dec0["book_uploads"],
+            "dict_uploads_saved": dec1["book_reuses"] - dec0["book_reuses"],
             "host_decode_ms": host_decode_ms,
             "prefetch_error_details": prefetch_errs,
             "fallbacks": list(fallbacks),
@@ -484,6 +586,28 @@ class Session:
             if self.device.type == "cuda" else None,
         }
         return result
+
+    def _plan_layouts(self, groups: list) -> None:
+        """Each group's lanes from the table's value ranges, and (with
+        encoded_exec) its encodings from its cardinality and run stats,
+        ONCE for every morsel of every pass (a per-morsel choice would
+        change a program's layout mid-stream); recorded on the group and
+        on its members' morsel scans."""
+        from . import streaming
+        from .torch_backend.device import (bucket, plan_encodings,
+                                           plan_lanes)
+        for g in groups:
+            st = self.column_stats(g.table)
+            streaming.set_group_lanes(g, plan_lanes(
+                g.dtypes, [st.get(c) for c in g.columns]))
+            if not self.config.encoded_exec or g.lanes is None:
+                continue
+            est = self.column_enc_stats(g.table, g.columns)
+            planned = plan_encodings(
+                g.dtypes, g.lanes, [est.get(c) for c in g.columns],
+                bucket(self.config.chunk_rows))
+            if planned is not None:
+                streaming.set_group_encodings(g, *planned)
 
     def _incore_partial(self, ex, branch) -> Table:
         """One-shot partial aggregate for a branch without a big scan, on
@@ -537,14 +661,16 @@ class Session:
         fuse = len(group.plans) > 1 and \
             (fuse_max <= 0 or len(group.plans) <= fuse_max)
         if state["slot"] is None:
+            # packed when the group has lanes (its codebooks go to the
+            # card here, once)
             state["slot"] = MorselSlot(group.columns, group.dtypes,
-                                       bucket(morsel_rows), ex.device)
+                                       bucket(morsel_rows), ex.device,
+                                       lanes=group.lanes,
+                                       encs=group.encodings,
+                                       codebooks=group.codebooks)
         slot = state["slot"]
         label = f"{self._active_label}/morsel:{group.table}"
-
-        def str_dicts() -> list:
-            return [c.dictionary for c in slot.table.cols
-                    if c.dtype == "str"]
+        str_dicts = slot.str_dicts
 
         def record_first():
             """Record the members' schedule on the slot's morsel and build

@@ -1,8 +1,7 @@
 # Copied from nds_tpu/engine/streaming.py, verbatim but for history notes in
-# comments and the functions of later slices: the lane and encoding setters
-# (set_group_lanes, set_group_encodings), verify_groups, the sharded-morsel
-# helpers (partition_morsel_rows, shard_capacity) and adapt_schedule are
-# left out.
+# comments and the functions of later slices: verify_groups, the
+# sharded-morsel helpers (partition_morsel_rows, shard_capacity) and
+# adapt_schedule are left out.
 """Out-of-core execution: morsel-streamed scan -> filter/join -> partial agg.
 
 The single-chip answer to "the table does not fit" (SURVEY.md §5 long-context
@@ -503,6 +502,39 @@ class ScanGroup:
     def morsel_key(self) -> str:
         """The executor scan-cache key every member's program reads."""
         return MORSEL_TABLE + "//" + ",".join(self.columns)
+
+
+def set_group_lanes(group: ScanGroup, lanes: Optional[tuple]) -> None:
+    """Attach a lane spec to a scan group: recorded on the group (the
+    packer's static per-morsel contract) AND on every member plan's morsel
+    ScanNode (width metadata the plan verifier checks against column
+    stats). Copy-on-write — morsel scans may be shared across members."""
+    if lanes is None:
+        return
+    group.lanes = tuple(lanes)
+    for i, p in enumerate(group.plans):
+        scan = _morsel_scan(p)
+        group.plans[i] = substitute_nodes(
+            p, {id(scan): replace(scan, lanes=tuple(lanes))})
+
+
+def set_group_encodings(group: ScanGroup, encs: tuple, lanes: tuple,
+                        codebooks: tuple) -> None:
+    """Attach an encoding spec to a scan group (device.plan_encodings
+    output): recorded on the group (the packer's static per-morsel
+    contract) AND on every member plan's morsel ScanNode (encoding
+    metadata the verifier proves against the same cardinality/run stats,
+    and which program fingerprints include). `lanes` is the WIRE lane
+    spec — dict columns ride their code lane."""
+    group.plain_lanes = group.lanes
+    group.lanes = tuple(lanes)
+    group.encodings = tuple(encs)
+    group.codebooks = tuple(codebooks)
+    for i, p in enumerate(group.plans):
+        scan = _morsel_scan(p)
+        group.plans[i] = substitute_nodes(
+            p, {id(scan): replace(scan, lanes=tuple(lanes),
+                                  encodings=tuple(encs))})
 
 
 def _morsel_scan(plan: PlanNode) -> ScanNode:

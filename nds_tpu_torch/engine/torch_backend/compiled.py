@@ -16,6 +16,12 @@ later run fills the slots, replays the graph and fetches the result and the
 checks in one synchronise. On the CPU the replay runs without a capture,
 its plain form. XLA's ahead-of-time compile and cost analysis have no
 counterpart here.
+
+A program is bound to its scans' wire layout (device.scan_layout: a
+packed morsel slot's lanes, encodings and codebook identities), as the
+reference's pytree aux binds its jit cache entry: a run over another
+layout raises ReplayMismatch, so that the caller records and captures
+again, and the shared-program key includes it.
 """
 from __future__ import annotations
 
@@ -33,7 +39,8 @@ import torch
 
 from ..plan import MaterializedNode, iter_plan_nodes
 from . import cuda_kernels as _ck
-from .device import DTable, Uploads, bucket, phys_dtype, uploads_active
+from .device import (DTable, PackedTable, Uploads, bucket, phys_dtype,
+                     scan_layout, uploads_active)
 
 
 class NotJittable(Exception):
@@ -125,12 +132,18 @@ def absolve_shared_program(fp: Optional[str]) -> None:
         _PROGRAM_STRIKES.pop(fp, None)
 
 
-def shared_fingerprint(pplan, gpu_ops: frozenset) -> str:
-    """Registry key of a parameterized unit plan: its structure and the
-    kernel choice (replay must take the kernels the record pass took)."""
+def shared_fingerprint(pplan, gpu_ops: frozenset,
+                       layouts: tuple = ()) -> str:
+    """Registry key of a parameterized unit plan: its structure (a morsel
+    scan's lanes and encodings are ScanNode fields), the kernel choice
+    (replay must take the kernels the record pass took) and its packed
+    scans' layouts (scan_layout: the codebooks' identities too)."""
     body = plan_fingerprint(pplan)
     ops = ",".join(sorted(gpu_ops))
-    return hashlib.sha1(f"{body}|gpu={ops}".encode()).hexdigest()
+    key = f"{body}|gpu={ops}"
+    if any(lay is not None for lay in layouts):
+        key += f"|layout={layouts!r}"
+    return hashlib.sha1(key.encode()).hexdigest()
 
 
 def plan_fingerprint(node) -> str:
@@ -210,7 +223,9 @@ def _no_load(name: str, columns=None):
 
 def _flat(t: DTable) -> list:
     """A table's tensors in a fixed order: alive, then each column's data
-    and validity."""
+    and validity (a packed table: its one buffer)."""
+    if isinstance(t, PackedTable):
+        return [t.data]
     out = [t.alive]
     for c in t.cols:
         out += [c.data, c.valid]
@@ -282,6 +297,10 @@ class CompiledQuery:
         self._specs_at_capture = None
         self.captured_launches: dict = {}
         self._prepared: dict = {}        # stats of prepare(), for the run
+        # the wire layouts of the scans the schedule was recorded over
+        # (the owner's scan cache holds them when the program is made)
+        self.layouts = tuple(scan_layout(owner._scan_cache.get(k))
+                             for k in scan_keys)
 
     @property
     def owner(self):
@@ -321,6 +340,11 @@ class CompiledQuery:
                 f"parameter vector length mismatch: program expects "
                 f"{len(self.param_dtypes)} hoisted parameter(s) with dtypes "
                 f"{list(self.param_dtypes)}, got {len(values)} value(s)")
+        layouts = tuple(scan_layout(scans[k]) for k in self.scan_keys)
+        if layouts != self.layouts:
+            # another wire layout is another program: record again
+            raise ReplayMismatch(f"scan layout changed: {layouts} != "
+                                 f"recorded {self.layouts}")
         return {k: scans[k] for k in self.scan_keys}
 
     def _specs(self, scans: dict) -> list:

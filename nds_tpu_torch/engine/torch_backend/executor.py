@@ -20,7 +20,12 @@ the one its graphs are captured on.
 
 The streamed path (engine/session.py) records a morsel group's plans with
 ``record_plans`` and replays them from one morsel slot; the slot's scan
-key is kept out of the resident-scan budget and is never loaded here.
+key is kept out of the resident-scan budget and is never loaded here. A
+packed slot unpacks inside the program (``_run_scan``); its narrow int32
+columns widen and its dictionary codes decode only where values are
+needed (``widen_col`` at aggregate and window arguments, ``decode_col``
+where group keys are output), and join keys stay on codes
+(``_joinable_pair``).
 
 Not in this slice: batched programs over stacked parameters and mesh
 execution.
@@ -50,8 +55,10 @@ from . import cuda_kernels as _ck
 from . import exprs, kernels
 from .compiled import (NOJIT_ERRORS, CompiledQuery, NotJittable, Recorder,
                        ReplayMismatch)
-from .device import (DCol, DTable, bucket, phys_dtype, rank_key,
-                     string_rank_maps, to_device, to_host, lut_gather)
+from .device import (DCol, DTable, PackedTable, bucket, decode_col,
+                     encode_against, lut_gather, phys_dtype, rank_key,
+                     scan_layout, string_rank_maps, to_device, to_host,
+                     unpack_table, widen_col)
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -398,7 +405,8 @@ class TorchExecutor:
         fp = None
         if key is not None and self._jit_plans:
             pplan, pvalues, pdtypes = parameterize_plan(plan)
-            fp = _cq.shared_fingerprint(pplan, self.gpu_ops)
+            fp = _cq.shared_fingerprint(pplan, self.gpu_ops,
+                                        self._scan_layouts(pplan))
             if self._adopt_shared(key, fp, tuple(pvalues), tuple(pdtypes)):
                 out = self._run_unit(key, plan, keep_device)
                 run = self.last_stats.get("mode")
@@ -429,6 +437,14 @@ class TorchExecutor:
             self._plans[key] = ent
             self._fp_block = None
         return out
+
+    def _scan_layouts(self, plan: PlanNode) -> tuple:
+        """The wire layouts of a plan's morsel scans held in the scan
+        cache (device.scan_layout), in plan order."""
+        return tuple(scan_layout(self._scan_cache.get(
+            n.table + "//" + ",".join(n.columns)))
+            for n in iter_plan_nodes(plan)
+            if isinstance(n, ScanNode) and n.table == MORSEL_TABLE)
 
     def _decision_labels(self, pplan) -> Optional[tuple]:
         """Per-decision TypeName#k labels of the schedule just recorded;
@@ -752,7 +768,7 @@ class TorchExecutor:
         dictionary would be data-dependent)."""
         if self._replay:
             dt = self.execute(plan)
-            col = dt.cols[0]
+            col = decode_col(dt.cols[0])
             if col.dtype == "str":
                 raise NotJittable("string scalar subquery under trace")
             perm, cnt = kernels.compaction_perm(dt.alive)
@@ -906,6 +922,10 @@ class TorchExecutor:
             cached = self._scan_cache.get(cache_key)
             if cached is None:
                 raise RuntimeError(f"morsel slot {cache_key!r} not staged")
+            if isinstance(cached, PackedTable):
+                # a packed slot: unpacked inside the program (views of
+                # its buffer, bits, run expansion)
+                cached = unpack_table(cached)
             return DTable(list(node.out_names), cached.cols, cached.alive)
         if cache_key not in self._scan_cache:
             if self._replay:
@@ -950,9 +970,8 @@ class TorchExecutor:
         pcols = [self._eval(e, child) for e in wf.partition_by]
         gid, _ = self._dense_rank([rank_key(c) for c in pcols],
                                   [c.valid for c in pcols], child.alive)
-        # the reference widens narrow-lane columns here (widen_col); the
-        # port's columns are always wide
-        arg_col = None if wf.arg is None else self._eval(wf.arg, child)
+        arg_col = None if wf.arg is None else widen_col(
+            self._eval(wf.arg, child))
         if arg_col is not None and arg_col.dtype == "str":
             raise NotImplementedError("window function over strings (device)")
         func = wf.func
@@ -1034,8 +1053,11 @@ class TorchExecutor:
         group_cols = [self._eval(e, child) for e in node.group_exprs]
         keys = [rank_key(c) for c in group_cols]
         kvalids = [c.valid for c in group_cols]
-        arg_cols = [None if s.arg is None else self._eval(s.arg, child)
-                    for s in node.aggs]
+        # aggregate arguments widen off narrow lanes: the within-group
+        # scan sums in the payload's dtype, and an int32 sum over a morsel
+        # would wrap (group KEYS stay narrow, and on codes)
+        arg_cols = [None if s.arg is None else widen_col(
+            self._eval(s.arg, child)) for s in node.aggs]
         int_keys = all(map(_is_int, keys))
         tier = self._decide_exact_lazy(
             lambda: kernels.group_tier(keys, kvalids, alive)) if int_keys \
@@ -1131,9 +1153,11 @@ class TorchExecutor:
             for i, gc in enumerate(group_cols):
                 if i < k:
                     cd = gc.canon().data
-                    out_cols.append(DCol(gc.dtype, cd[orig],
-                                         gc.valid[orig] & alive_out,
-                                         gc.dictionary))
+                    # sort and scan ran on codes; the group-sized output
+                    # decodes
+                    out_cols.append(decode_col(DCol(
+                        gc.dtype, cd[orig], gc.valid[orig] & alive_out,
+                        gc.dictionary, codebook=gc.codebook)))
                 else:
                     out_cols.append(_null_col(gc, cap_out, self.device))
 
@@ -1222,7 +1246,11 @@ class TorchExecutor:
             if i in keep_set:
                 vals, valid = kernels.group_representatives(
                     gid, child.alive, gc.canon().data, gc.valid, cap_out)
-                out_cols.append(DCol(gc.dtype, vals, valid, gc.dictionary))
+                # grouping ran on codes (rank_key); the group-sized
+                # representative is the decode site
+                out_cols.append(decode_col(DCol(gc.dtype, vals, valid,
+                                                gc.dictionary,
+                                                codebook=gc.codebook)))
             else:  # rolled-up column: NULL
                 out_cols.append(_null_col(gc, cap_out, self.device))
         out_cols.extend(self._compute_aggs(node.aggs, child, gid,
@@ -1239,7 +1267,7 @@ class TorchExecutor:
         out: list[DCol] = []
         for spec in specs:
             arg_col = None if spec.arg is None else \
-                self._eval(spec.arg, child)
+                widen_col(self._eval(spec.arg, child))
             use_alive = alive
             if spec.distinct and arg_col is not None:
                 use_alive = kernels.distinct_within_group(
@@ -1248,13 +1276,8 @@ class TorchExecutor:
                 out.append(self._agg_string(spec, arg_col, gid, use_alive,
                                             cap_out))
                 continue
-            arg = None
-            if arg_col is not None:
-                data = arg_col.canon().data
-                if spec.func == "sum" and (arg_col.dtype == "int"
-                                           or is_dec(arg_col.dtype)):
-                    data = data.to(phys_dtype("int"))
-                arg = (data, arg_col.valid)
+            arg = None if arg_col is None else \
+                (arg_col.canon().data, arg_col.valid)
             vals, valid = kernels.agg_apply(gid, use_alive, spec.func, arg,
                                             cap_out)
             if arg_col is not None and is_dec(arg_col.dtype) and \
@@ -1573,9 +1596,22 @@ def _gather_cols(cols: list, idx: torch.Tensor) -> list:
 
 
 def _joinable_pair(a: DCol, b: DCol):
-    """Comparable device key tensors for a join key pair."""
+    """Comparable device key tensors for a join key pair. Where one side
+    carries a codebook the join runs on its codes: the plain side's
+    values go into that code space (device.encode_against: the code, or
+    -1, which matches nothing), so the big encoded side keeps its int32
+    codes. Codes meet only codes of the same codebook; two different
+    codebooks decode."""
     if a.dtype == "str" or b.dtype == "str":
         return exprs.string_pair_keys(a, b)
+    if a.codebook is not None or b.codebook is not None:
+        if a.codebook is b.codebook:
+            return a.canon().data, b.canon().data
+        if b.codebook is None:
+            return a.canon().data, encode_against(a.codebook, b)
+        if a.codebook is None:
+            return encode_against(b.codebook, a), b.canon().data
+        a, b = decode_col(a), decode_col(b)   # different codebooks
     da, db = a.canon().data, b.canon().data
     if da.dtype != db.dtype:
         ct = torch.promote_types(da.dtype, db.dtype)
@@ -1613,13 +1649,18 @@ def _concat_dtables(pieces: list[DTable], names: list[str]) -> DTable:
     host)."""
     out_cols: list[DCol] = []
     for ci in range(len(pieces[0].cols)):
-        cols = [p.cols[ci] for p in pieces]
+        # pieces may mix encodings and widths (an encoded inner-join piece
+        # beside a plain null extension): codes of different codebooks
+        # never share a buffer, so a concatenation is a decode site
+        cols = [decode_col(p.cols[ci]) for p in pieces]
         valid = torch.cat([c.valid for c in cols])
         if cols[0].dtype == "str":
             dictionary, datas = exprs.merge_branch_strings(cols)
             out_cols.append(DCol("str", torch.cat(datas), valid, dictionary))
         else:
             pd = cols[0].data.dtype
+            for c in cols[1:]:
+                pd = torch.promote_types(pd, c.data.dtype)
             out_cols.append(DCol(cols[0].dtype,
                                  torch.cat([c.data.to(pd) for c in cols]),
                                  valid))

@@ -6,6 +6,14 @@ work never touches the device: predicates, substrings and parses are
 computed once over the host dictionary and become lookup tables that the
 device gathers at the row codes.
 
+Encoded columns (``DCol.codebook``, dictionary codes of a packed morsel)
+stay on their codes where the answer allows: a compare with a literal and
+an IN list remap the literal into code space on the host (a hoisted
+literal, a device scalar under replay, is not remapped: the column
+decodes, as the reference's traced values do). Every other handler takes
+its arguments decoded (``_args``); arithmetic that must not wrap widens
+narrow int32 lanes first (``widen_col``).
+
 Under compiled replay (``EvalCtx.replay``) nothing here reads device data
 back: hoisted literals (BParam) and scalar subqueries are device scalars,
 CONCAT takes a dictionary that does not depend on the data (device.CrossDict),
@@ -26,8 +34,9 @@ import torch
 from ..column import dec_scale, is_dec
 from ..exprs import _scaled_in_values, _sql_str
 from ..plan import BCall, BCol, BExpr, BLit, BParam, BScalarSubquery
-from .device import (CrossDict, DCol, DTable, dict_values, lut_gather,
-                     phys_dtype, string_rank_lut, upload)
+from .device import (CrossDict, DCol, DTable, decode_col, dict_values,
+                     lut_gather, phys_dtype, string_rank_lut, upload,
+                     widen_col)
 
 SubqueryEval = Callable[[object], object]
 
@@ -104,7 +113,9 @@ def constant(dtype: str, value, n: int, device) -> DCol:
 
 
 def _args(expr: BCall, table: DTable, sq) -> list[DCol]:
-    return [evaluate(a, table, sq) for a in expr.args]
+    """Evaluated arguments, encoded columns decoded: the generic handlers
+    compute on values (the compare and IN handlers evaluate raw)."""
+    return [decode_col(evaluate(a, table, sq)) for a in expr.args]
 
 
 def _to_float(c: DCol) -> torch.Tensor:
@@ -211,7 +222,7 @@ def _arith(op: str):
 
 
 def _neg(expr: BCall, table: DTable, sq) -> DCol:
-    a = evaluate(expr.args[0], table, sq)
+    a = widen_col(evaluate(expr.args[0], table, sq))
     return DCol(a.dtype, -a.data, a.valid)
 
 
@@ -252,9 +263,70 @@ _CMP = {"eq": torch.eq, "ne": torch.ne, "lt": torch.lt, "le": torch.le,
         "gt": torch.gt, "ge": torch.ge}
 
 
+_FLIP = {"eq": "eq", "ne": "ne", "lt": "gt", "le": "ge", "gt": "lt",
+         "ge": "le"}
+
+
+def _code_space_compare(op: str, c: DCol, value) -> Optional[torch.Tensor]:
+    """col <op> literal on codes: the sorted codebook orders as the values
+    do, so the literal becomes a code threshold on the host (a value
+    between entries lands on the search boundary; one absent from an
+    eq/ne gives the constant answer). The raw compare (validity is the
+    caller's), or None where the op cannot remap."""
+    # int64 on the host: a literal outside int32 lands on the right
+    # boundary instead of overflowing
+    book = np.asarray(c.codebook, dtype=np.int64)
+    value = np.int64(max(min(int(value), np.iinfo(np.int64).max),
+                         np.iinfo(np.int64).min))
+    i = int(np.searchsorted(book, value, side="left"))
+    present = i < len(book) and book[i] == value
+    codes = c.data
+    if op == "eq":
+        return (codes == i) if present else torch.zeros_like(codes,
+                                                             dtype=torch.bool)
+    if op == "ne":
+        return (codes != i) if present else torch.ones_like(codes,
+                                                            dtype=torch.bool)
+    if op == "lt":
+        return codes < i
+    if op == "ge":
+        return codes >= i
+    hi = int(np.searchsorted(book, value, side="right"))
+    if op == "le":
+        return codes < hi
+    if op == "gt":
+        return codes >= hi
+    return None
+
+
+def _lit_value(e, dtype: str):
+    """The engine-unit value of a literal comparable with a `dtype`
+    column, or None where it is not one that remaps (a hoisted parameter
+    slot among them)."""
+    if not isinstance(e, BLit) or e.value is None:
+        return None
+    if e.dtype != dtype or dtype not in ("int", "date") and not is_dec(dtype):
+        return None
+    return int(e.value)
+
+
 def _compare(op: str):
     def run(expr: BCall, table: DTable, sq) -> DCol:
-        a, b = _args(expr, table, sq)
+        a, b = [evaluate(x, table, sq) for x in expr.args]
+        # a column-vs-literal compare on an encoded column runs on codes
+        out = None
+        if a.codebook is not None and b.codebook is None:
+            v = _lit_value(expr.args[1], a.dtype)
+            if v is not None:
+                out = _code_space_compare(op, a, v)
+        elif b.codebook is not None and a.codebook is None:
+            v = _lit_value(expr.args[0], b.dtype)
+            if v is not None:
+                out = _code_space_compare(_FLIP[op], b, v)
+        if out is not None:
+            valid = a.valid & b.valid
+            return DCol("bool", out & valid, valid)
+        a, b = decode_col(a), decode_col(b)
         valid = a.valid & b.valid
         if a.dtype == "str" or b.dtype == "str":
             ka, kb = string_pair_keys(a, b)
@@ -304,7 +376,24 @@ def _in_list(expr: BCall, table: DTable, sq) -> DCol:
     has_null = any(v is None for v in values)
     dev = a.data.device
     params = [v for v in values if isinstance(v, BParam)]
-    if a.dtype == "str":
+    if a.codebook is not None and params:
+        a = decode_col(a)    # device parameters cannot remap on the host
+    if a.codebook is not None:
+        # membership on codes: the items remap through the sorted
+        # codebook on the host; an absent value gives no code
+        if is_dec(a.dtype):
+            vals = _scaled_in_values(values, dec_scale(a.dtype))
+        else:
+            vals = [int(v) for v in values if v is not None]
+        book = np.asarray(a.codebook, dtype=np.int64)
+        varr = np.asarray(vals, dtype=np.int64)
+        idx = np.searchsorted(book, varr)
+        safe = np.clip(idx, 0, max(len(book) - 1, 0))
+        codes = safe[(idx < len(book)) & (book[safe] == varr)]
+        out = _member(a.data, upload(codes.astype(np.int32), dev)) \
+            if codes.size else torch.zeros(len(a), dtype=torch.bool,
+                                           device=dev)
+    elif a.dtype == "str":
         d = _dict(a)
         vset = {v for v in values if v is not None}
         hit = np.asarray([v in vset for v in d], dtype=bool)
@@ -371,8 +460,9 @@ def _like(expr: BCall, table: DTable, sq) -> DCol:
 
 def _case(expr: BCall, table: DTable, sq) -> DCol:
     pairs = expr.args[:-1]
-    else_col = evaluate(expr.args[-1], table, sq)   # first, as the reference
-    branch_cols = [evaluate(pairs[i + 1], table, sq)
+    # first, as the reference
+    else_col = decode_col(evaluate(expr.args[-1], table, sq))
+    branch_cols = [decode_col(evaluate(pairs[i + 1], table, sq))
                    for i in range(0, len(pairs), 2)]
     branch_cols.append(else_col)
     dictionary = None
@@ -435,7 +525,8 @@ def _halfup_rescale(data: torch.Tensor, from_scale: int,
 
 
 def _cast(expr: BCall, table: DTable, sq) -> DCol:
-    a = evaluate(expr.args[0], table, sq)
+    # rescaling multiplies by 10^k: narrow lanes widen first
+    a = widen_col(evaluate(expr.args[0], table, sq))
     target = expr.dtype
     if target == a.dtype:
         return a
@@ -606,12 +697,12 @@ def _concat_cross(parts: list[DCol]) -> DCol:
 
 
 def _abs(expr: BCall, table: DTable, sq) -> DCol:
-    a = evaluate(expr.args[0], table, sq)
+    a = widen_col(evaluate(expr.args[0], table, sq))
     return DCol(a.dtype, torch.abs(a.data), a.valid)
 
 
 def _round(expr: BCall, table: DTable, sq) -> DCol:
-    a = evaluate(expr.args[0], table, sq)
+    a = widen_col(evaluate(expr.args[0], table, sq))
     digits = expr.extra if expr.extra is not None else 0
     if is_dec(a.dtype) and is_dec(expr.dtype):
         # negative digits: round to tens/hundreds, then restore the scale
@@ -627,7 +718,7 @@ def _round(expr: BCall, table: DTable, sq) -> DCol:
 
 
 def _grouping_bit(expr: BCall, table: DTable, sq) -> DCol:
-    a = evaluate(expr.args[0], table, sq)
+    a = decode_col(evaluate(expr.args[0], table, sq))
     bit = int(expr.extra)
     out = (a.data.to(phys_dtype("int")) >> bit) & 1
     return DCol("int", out, a.valid)

@@ -324,8 +324,13 @@ def test_session_on_the_card_follows_the_lifecycle(dev, sf001, name):
     each equal to the numpy oracle."""
     import nds_tpu_torch as nt
     from nds_tpu_torch import datagen, streams
+    from nds_tpu_torch.engine.torch_backend.compiled import \
+        clear_shared_programs
     from nds_tpu_torch.validate import table_mismatches
     sql = dict(streams.template_units(stream=0, rngseed=3))[name]
+    # a template an earlier test ran would be adopted from the shared
+    # registry ("adopted"), not recorded
+    clear_shared_programs()
     s = nt.Session(nt.EngineConfig(decimal_physical="i64"), device="cuda")
     datagen.setup_tables(s, sf001)
     want = s.sql(sql, backend="numpy")

@@ -3,8 +3,8 @@ cases of tests/test_streaming.py over one fact table in ~13 morsels —
 grouped and global aggregates, ROLLUP, a window above the aggregate, and
 plans with no streaming job, which run in-core (ROADMAP C.1). The
 planner's eligibility rules hold for the port's copy of the planner. The
-packed-lane round trip (test_pack_table_roundtrip) belongs to a later
-slice (ROADMAP A.2). See tests/torch_streaming_cases.py."""
+packed-lane round trip (test_pack_table_roundtrip) is in
+tests/test_torch_lanes1.py. See tests/torch_streaming_cases.py."""
 import pytest
 
 import torch_streaming_cases as C

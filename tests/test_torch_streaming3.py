@@ -5,6 +5,7 @@ once per morsel into the group's slot); a group within the fusion budget
 runs as one multi-plan program. The three modes (shared and fused, shared
 per member, per branch) give identical results, equal to the reference's
 and to SQLite's. See tests/torch_streaming_cases.py."""
+import gc
 import math
 import sqlite3
 
@@ -198,6 +199,7 @@ def test_live_config_toggle_invalidates_stream_cache(data):
     c = s.sql(C.Q9)
     assert s.last_stats["morsels"] == -(-C.N_FACT // (C.CHUNK * 2))
     assert table_mismatches(c, a) == []
+    gc.collect()        # earlier tests' unreachable slots go first
     slots = open_slots()
     s.config.out_of_core_min_rows = C.N_FACT * 10
     s.sql(C.Q9)

@@ -7,17 +7,23 @@ row groups, a 300-row dimension, and two fact channels for the UNION ALL
 shapes. Every case runs the same SQL three ways over the same tables:
 
 - the reference, ``nds_tpu.Session`` with ``out_of_core=True``,
-  ``chunk_rows=4096``, ``out_of_core_min_rows=10_000`` and
-  ``narrow_lanes=False`` (the port has no packed lanes), jit-compiled on the
-  CPU;
+  ``chunk_rows=4096`` and ``out_of_core_min_rows=10_000``, jit-compiled on
+  the CPU;
 - the port streamed, ``nds_tpu_torch.Session(..., device="cpu")`` with the
   same settings;
 - the port in-core (``out_of_core=False``).
 
+``sessions(lanes=False)`` (the streaming tests' comparisons) sets
+``narrow_lanes=False`` on both sides: plain morsel uploads.
+``sessions(lanes=True)`` keeps both engines' defaults, packed narrow lanes
+with dictionary and run-length encodings (tests/test_torch_lanes_streaming
+*.py).
+
 Both port results must equal the reference's streamed result (integers and
 i64 decimals bit-identical, floats to rtol 1e-9: ``validate.
 table_mismatches``), and the structural stats of a streamed run
-(STRUCTURAL) must equal the reference's ``last_exec_stats``.
+(STRUCTURAL) and its wire layout (``lane_spec``, ``enc_spec``) must equal
+the reference's ``last_exec_stats``.
 """
 import os
 
@@ -109,17 +115,25 @@ def register(session, tables: dict) -> None:
             session.register_arrow(name, t)
 
 
-def sessions(tables: dict, **cfg):
-    """(reference streamed, port streamed, port in-core) over `tables`."""
-    kw = dict(chunk_rows=CHUNK, out_of_core_min_rows=MIN_ROWS)
+def sessions(tables: dict, lanes: bool = False, **cfg):
+    """(reference streamed, port streamed, port in-core) over `tables`,
+    with narrow_lanes (and so encoded_exec) on or off on both sides."""
+    kw = dict(chunk_rows=CHUNK, out_of_core_min_rows=MIN_ROWS,
+              narrow_lanes=lanes)
     kw.update(cfg)
-    ref = RSession(RConfig(out_of_core=True, narrow_lanes=False, **kw))
+    ref = RSession(RConfig(out_of_core=True, **kw))
     port = nt.Session(nt.EngineConfig(**kw), device="cpu")
     incore = nt.Session(nt.EngineConfig(out_of_core=False, **kw),
                         device="cpu")
     for s in (ref, port, incore):
         register(s, tables)
     return ref, port, incore
+
+
+def packed_bytes(lane_spec: dict) -> int:
+    """The wire bytes of one morsel with these lanes (all plain)."""
+    from nds_tpu_torch.engine.torch_backend.device import bucket, lane_bytes
+    return lane_bytes(tuple(lane_spec.values()), bucket(CHUNK))
 
 
 def run_ref(ref, sql: str):
@@ -132,22 +146,27 @@ def run_port(port, sql: str):
     return got, dict(port.last_stats)
 
 
-def check(ref, port, incore, sql: str, streams: bool = True) -> tuple:
-    """The three runs of `sql`: both port results equal the reference's,
-    and a streamed run's structural stats equal the reference's. Returns
-    (reference stats, port stats)."""
+def check(ref, port, incore, sql: str, streams: bool = True,
+          runs: int = 1) -> tuple:
+    """The three runs of `sql` (the port's streamed one `runs` times: a
+    cold record, then warm replays): every port result equals the
+    reference's, and a streamed run's structural stats equal the
+    reference's. Returns (reference stats, the last port stats)."""
     want, rst = run_ref(ref, sql)
-    got, pst = run_port(port, sql)
+    for _ in range(runs):
+        got, pst = run_port(port, sql)
+        assert table_mismatches(got, want) == []
+        assert port.last_fallbacks == []
     base = incore.sql(sql, backend="torch")
     assert incore.last_stats.get("mode") != "streamed"
-    assert table_mismatches(got, want) == []
     assert table_mismatches(base, want) == []
-    assert port.last_fallbacks == []
     if streams:
         assert rst["mode"] == "streaming"
         assert pst["mode"] == "streamed"
         assert {k: pst[k] for k in STRUCTURAL} == \
             {k: rst.get(k, 0) for k in STRUCTURAL}
+        assert pst["lane_spec"] == rst["lane_spec"]
+        assert pst["enc_spec"] == rst.get("enc_spec")
         assert pst["prefetch_error_details"] == []
     else:
         assert rst.get("mode") != "streaming"
