@@ -2,7 +2,7 @@
 """Smoke run of nds_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--sf 10] [--templates_sf 0.5] [--profile]
-                          [--parent TREE]
+                          [--parent TREE] [--service_loop]
 
 Phases, one JSON line each:
 
@@ -29,6 +29,34 @@ Phases, one JSON line each:
    replays and its busy share, the graph pool's growth, peak memory and
    the kernels each capture launched. Counters zeroed just before, read
    just after;
+3b'. service: on the same session, the concurrent query service
+   (nds_tpu_torch.service) over the three dashboard templates of
+   scripts/service_bench.py (store_qty, year_sales, category_rev over
+   store_sales), a literal pool of 8 a template and one covering warm-up
+   text a template, run twice: the first 96 of 480 queries drawn
+   round-robin from the pool serially through Session.sql; then each
+   template's held batches of 16, 2 and 13 distinct-literal tickets,
+   each released at once and served as one batched dispatch over the
+   rungs of the capacity ladder (16; 2; 8, 4 and 1), so that every
+   batched graph is captured before the clients come, with the card's
+   allocation peak of each (a capture of 16 rows beside one of 2); a
+   kernel-coverage probe apart from the measured runs (a held batch of 4
+   of a global aggregate of the same filter, the only shape here that
+   reaches seg_reduce_multi); then 100 client threads on one QueryService
+   at the reference's defaults submitting all 480 queries
+   (``--service_loop``: then again with every distinct row of a batch
+   its own replay of the single program's graph, then with the batched
+   graphs again). Every result equals the serial result of its text bit
+   for bit and one result of each distinct text the numpy oracle; the
+   phase fails on a host fallback, a batch failure of another class than
+   ReplayMismatch or "unavailable", no batched dispatch at 100 clients, a
+   held batch not served as one dispatch over its rungs, a second capture
+   of one (program, batch capacity), and a kernel never launched inside
+   a batched capture. It reports the serial and service QPS with p50 and
+   p99, queue waits, the batched dispatches and their sizes, dedup, the
+   rows run, per (program, batch capacity) the capture's seconds and
+   pool growth and the batched graph's ms, the busy share and peak
+   memory. Counters zeroed just before, read just after;
 3c. transcode: store_sales, catalog_sales and inventory from the CSV to
    Parquet (pyarrow on the host) in the temporary directory, registered
    with register_parquet on a new session (their row counts then come
@@ -110,8 +138,10 @@ REPLACES = {
 #: edge cases are timed too, and their launches broken down by kernel
 REDESIGNED = ("sort_pairs", "seg_reduce_multi")
 #: the first slice's six queries, then the window (12, 47, 51, 67),
-#: set-operation (2, 5, 38, 87) and concatenation (5) paths at full scale
-QUERIES = (3, 7, 9, 42, 55, 96, 2, 5, 12, 38, 47, 51, 67, 87)
+#: set-operation (2, 5, 38, 87) and concatenation (5) paths at full scale;
+#: q67 runs first, so that its numpy oracle (two to three minutes at SF10,
+#: the longest) starts while the others run (OracleForks)
+QUERIES = (67, 3, 7, 9, 42, 55, 96, 2, 5, 12, 38, 47, 51, 87)
 #: the queries whose largest first-row scatter the spare-slot phase times
 SPARE_SLOT_QUERIES = (38, 87)
 SEED = 3
@@ -325,6 +355,65 @@ def _oracle(sql: str):
     return want, time.perf_counter() - t0
 
 
+class OracleForks:
+    """The numpy oracle of each unit in a process forked from this one
+    as soon as the unit has run (so that it shares the host tables the
+    unit loaded, and never touches the card), at most `workers` at a time,
+    while the caller goes on; results() waits for all of them."""
+
+    def __init__(self, session, workers: int):
+        self.session, self.workers = session, workers
+        self.queued: list = []          # (index, sql) not forked yet
+        self.running: dict = {}         # connection -> (index, process)
+        self.done: dict = {}            # index -> (result, seconds)
+
+    def submit(self, sql: str) -> None:
+        self.queued.append((len(self.queued) + len(self.running)
+                            + len(self.done), sql))
+        self._pump(block=False)
+
+    def _fork(self, i: int, sql: str) -> None:
+        import multiprocessing
+        ctx = multiprocessing.get_context("fork")
+        recv, send = ctx.Pipe(duplex=False)
+        _FORKED["session"] = self.session
+        try:
+            proc = ctx.Process(target=_oracle_to, args=(sql, send))
+            proc.start()
+        finally:
+            _FORKED.clear()
+        send.close()
+        self.running[recv] = (i, proc)
+
+    def _pump(self, block: bool) -> None:
+        from multiprocessing.connection import wait
+        while self.queued or (block and self.running):
+            while self.queued and len(self.running) < self.workers:
+                self._fork(*self.queued.pop(0))
+            ready = wait(list(self.running), timeout=None if block else 0)
+            if not ready and not block:
+                return
+            for conn in ready:
+                i, proc = self.running.pop(conn)
+                out = conn.recv()
+                proc.join()
+                if isinstance(out, str):
+                    raise SystemExit(f"oracle failed: {out}")
+                self.done[i] = out
+
+    def results(self) -> list:
+        """[(the numpy executor's result, seconds)] in submission order."""
+        self._pump(block=True)
+        return [self.done[i] for i in sorted(self.done)]
+
+
+def _oracle_to(sql: str, conn) -> None:
+    try:
+        conn.send(_oracle(sql))
+    except BaseException:
+        conn.send(traceback.format_exc())
+
+
 def oracle_results(session, sqls: list) -> list:
     """[(the numpy executor's result, seconds)] for each query of `sqls`
     on `session`, in worker processes forked from this one: they share the
@@ -382,7 +471,8 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
               results: dict | None = None) -> dict:
     """Each (name, sql) of `units` through Session.sql(backend="torch"):
     eager (jit_plans=False) cold (loads and uploads included) and warm, or
-    warm only when `oracle` is given (another phase ran them cold); with
+    warm only when `oracle` holds the results (another phase ran them
+    cold); with
     `replay`, then through the compiled lifecycle: record, compile+run and
     REPLAYS graph replays. The launch counters are zeroed just before the
     first run and read just after the last; then every result is held
@@ -391,16 +481,19 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
     last line if any unit fell back to the host, disagreed, or strayed
     from the lifecycle. Sets ``recorder.label`` to each unit's name while
     it runs; ``results`` ({unit: result}) receives each unit's last
-    result. Returns (counter totals, the oracle results, the lines)."""
+    result. ``oracle`` may also be an OracleForks, given each unit's
+    statement as soon as the unit has run. Returns (counter totals, the
+    oracle results, the lines)."""
     from nds_tpu_torch.validate import table_mismatches
     runs, failed = [], []
+    cold = oracle is None or isinstance(oracle, OracleForks)
     ck.reset_launches()                 # the path starts here
     for name, sql in units:
         if recorder is not None:
             recorder.label = name
         before = dict(ck.LAUNCHES)
         eager = [_sql_run(session, sql, False)
-                 for _ in range(1 if oracle is not None else 2)]
+                 for _ in range(2 if cold else 1)]
         compiled = [_sql_run(session, sql, True)
                     for _ in range(2 + REPLAYS)] if replay else []
         for _, _, st, _ in eager + compiled:
@@ -412,10 +505,14 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
                                        for k in ck.LAUNCHES}))
         if results is not None:
             results[name] = (eager + compiled)[-1][0]
+        if isinstance(oracle, OracleForks):
+            oracle.submit(sql)
     totals = dict(ck.LAUNCHES)          # read just after the path
     if recorder is not None:
         recorder.label = None
-    if oracle is None:
+    if isinstance(oracle, OracleForks):
+        oracle = oracle.results()
+    elif oracle is None:
         oracle = oracle_results(session, [sql for _, sql in units])
     lines = []
     for (name, _), (eager, compiled, launches), (want, oracle_s) in zip(
@@ -486,9 +583,11 @@ def query_units() -> list:
 
 def phase_queries(session, ck, recorder=None):
     """QUERIES at the session's scale, eager: the main path of the kernel
-    phase's inputs. Returns (counter totals, oracle results)."""
+    phase's inputs. The numpy oracle of each query runs in a process
+    forked as soon as the query has run (three at a time), beside the
+    later queries. Returns (counter totals, oracle results)."""
     totals, oracle, _ = run_units(session, ck, query_units(), "query",
-                                  recorder)
+                                  recorder, oracle=OracleForks(session, 3))
     emit("launches", totals=totals)
     return totals, oracle
 
@@ -508,6 +607,401 @@ def phase_replay(session, ck, oracle) -> dict:
          replay_s=sum(ln["replay_s"] for ln in lines))
     return {"totals": totals, "captured": captured, "results": results,
             "walls": {ln["unit"]: ln["replay_s"] for ln in lines}}
+
+
+# ---------------------------------------------------------------------------
+# the concurrent query service
+# ---------------------------------------------------------------------------
+
+#: the dashboard templates of scripts/service_bench.py (TEMPLATES), copied:
+#: every hoistable literal varies per text, so the texts of a template
+#: parameterize to one plan fingerprint
+SERVICE_TEMPLATES = {
+    "store_qty": (
+        "SELECT ss_store_sk, COUNT(*) AS n, SUM(ss_quantity) AS q "
+        "FROM store_sales WHERE ss_quantity BETWEEN {a} AND {b} "
+        "GROUP BY ss_store_sk ORDER BY ss_store_sk"),
+    "year_sales": (
+        "SELECT d_year, COUNT(*) AS n, SUM(ss_quantity) AS q "
+        "FROM store_sales JOIN date_dim ON ss_sold_date_sk = d_date_sk "
+        "WHERE ss_quantity < {a} GROUP BY d_year ORDER BY d_year"),
+    "category_rev": (
+        "SELECT i_category, COUNT(*) AS n, "
+        "SUM(ss_ext_sales_price) AS rev "
+        "FROM store_sales JOIN item ON ss_item_sk = i_item_sk "
+        "WHERE ss_quantity BETWEEN {a} AND {b} "
+        "GROUP BY i_category ORDER BY i_category"),
+}
+#: a kernel-coverage probe, not traffic: the port aggregates the three
+#: templates' groups over sorted keys with a scan, so none of them reaches
+#: seg_reduce_multi, which a global aggregate of the same filter does. Its
+#: own held batch runs apart from every measured run, and counts only
+#: toward the launches made inside batched captures
+COVERAGE_PROBE = (
+    "SELECT COUNT(*) AS n, SUM(ss_quantity) AS q, "
+    "SUM(ss_ext_sales_price) AS rev "
+    "FROM store_sales WHERE ss_quantity BETWEEN {a} AND {b}")
+COVERAGE_ROWS = 4
+#: texts of each template in the literal pool (service_bench's
+#: POOL_PER_TEMPLATE), queries drawn from it, the first of them run
+#: serially (four of each pool text: the baseline's QPS), and client threads
+SERVICE_POOL = 8
+SERVICE_QUERIES = 480
+SERVICE_SERIAL = 96
+SERVICE_CLIENTS = 100
+#: each template's held batches, in turn: ServiceConfig.max_batch (one
+#: graph of 16 rows), 2, and 13 (graphs of 8, 4 and 1), so that every
+#: rung's batched graph is captured before the clients come, and the
+#: capture of 16 rows stands beside that of 2 rows for its memory
+SERVICE_HELD = (16, 2, 13)
+#: batch failures that are the service's normal life: no program yet, and a
+#: row past the schedule (both then served serially)
+BATCH_ERRORS_OK = ("unavailable", "ReplayMismatch")
+
+
+def service_pool() -> list:
+    """[(label, sql)] as service_bench.build_pool makes it: a = 20 + i,
+    b = 60 + 2i."""
+    return [(f"{name}#{i}", tpl.format(a=20 + i, b=60 + 2 * i))
+            for name, tpl in SERVICE_TEMPLATES.items()
+            for i in range(SERVICE_POOL)]
+
+
+def service_warm() -> list:
+    """service_bench.warm_texts: one text a template whose filter holds
+    every pool text's, so its schedule covers the pool."""
+    a_min, a_max = 20, 20 + SERVICE_POOL - 1
+    b_max = 60 + 2 * (SERVICE_POOL - 1)
+    cover = {"store_qty": dict(a=a_min, b=b_max),
+             "year_sales": dict(a=a_max, b=b_max),
+             "category_rev": dict(a=a_min, b=b_max)}
+    return [(f"warm-{name}", tpl.format(**cover[name]))
+            for name, tpl in SERVICE_TEMPLATES.items()]
+
+
+def service_held() -> dict:
+    """{template: max(SERVICE_HELD) distinct texts}: the pool's, then as
+    many again inside the warm-up's filter (so no row outgrows the
+    covering schedule): b one lower, or (year_sales) a below the pool's.
+    A held batch of k takes the first k."""
+    out = {}
+    for name, tpl in SERVICE_TEMPLATES.items():
+        more = max(SERVICE_HELD) - SERVICE_POOL
+        lits = [dict(a=20 + i, b=60 + 2 * i) for i in range(SERVICE_POOL)]
+        if name == "year_sales":
+            lits += [dict(a=20 - more + i) for i in range(more)]
+        else:
+            lits += [dict(a=20 + i, b=59 + 2 * i) for i in range(more)]
+        out[name] = [tpl.format(**kw) for kw in lits]
+    return out
+
+
+def _pct(vals: list, p: float):
+    if not vals:
+        return None
+    v = sorted(vals)
+    return v[min(len(v) - 1, int(p * len(v)))]
+
+
+def loop_param_batch(ex, fp, rows):
+    """The alternative to batched graphs that ``--service_loop`` measures
+    (TorchExecutor.run_param_batch's signature): the executor's own single
+    program, its CUDA graph, replayed once per distinct row, each row
+    fetched and checked on its own."""
+    from nds_tpu_torch.engine.torch_backend import compiled
+    with compiled._SHARED_LOCK:
+        sh = compiled._SHARED_PROGRAMS.get(fp)
+        cq = compiled.shared_program(sh, ex) if sh is not None else None
+    if cq is None or not ex._jit_plans:
+        return None
+    scans = ex._scans_for({"scan_keys": cq.scan_keys})
+    outs, graph_ms = [], 0.0
+    for row in rows:
+        st: dict = {}
+        outs.append(cq.run(scans, row, stats=st))
+        graph_ms += st.get("graph_ms", 0.0)
+    ex.fallback_nodes = []
+    ex.last_stats = {"mode": "batched", "batch_rows": len(rows),
+                     "batch_caps": (), "graphs": [], "graph_ms": graph_ms}
+    return outs
+
+
+def _held_dispatch(svc, texts: list, label: str, on_card: bool):
+    """Submit `texts` while the device lane is held, release them at once
+    and wait for every result: (tickets, the bytes allocated on the card
+    at the dispatch's peak above those allocated before it, the peak
+    before it)."""
+    import torch
+    with svc.hold_dispatch():
+        ts = [svc.submit(sql, label=f"{label}-{i}")
+              for i, sql in enumerate(texts)]
+        deadline = time.time() + 60
+        while time.time() < deadline:
+            with svc._cv:
+                if len(svc._ready) >= len(ts):
+                    break
+            time.sleep(0.005)
+        base = peak0 = 0
+        if on_card:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            peak0 = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+    for t in ts:
+        t.result(timeout=300)
+    grown = torch.cuda.max_memory_allocated() - base if on_card else 0
+    return ts, grown, peak0
+
+
+def _client_run(svc, workload: list, tag: str):
+    """SERVICE_CLIENTS client threads, each submitting its share of
+    `workload` one query at a time: (tickets, client walls, wall, errors)."""
+    import threading
+    shares = [workload[c::SERVICE_CLIENTS] for c in range(SERVICE_CLIENTS)]
+    tickets: list = []
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(cid):
+        for i, sql in enumerate(shares[cid]):
+            q0 = time.perf_counter()
+            try:
+                t = svc.submit(sql, label=f"{tag}{cid}-{i}")
+                t.result(timeout=600)
+            except Exception as e:          # reported by the caller
+                errors.append(f"{tag} client {cid}: {type(e).__name__}: {e}")
+                continue
+            with lock:
+                tickets.append(t)
+                lat.append(time.perf_counter() - q0)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVICE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return tickets, lat, time.perf_counter() - t0, errors
+
+
+def _run_fields(tickets: list, lat: list, wall: float) -> dict:
+    """One run of the clients' figures: QPS, client walls and queue waits,
+    modes, batched dispatches and their sizes, rows run, busy share (the
+    device time of the graphs the run replayed over its wall)."""
+    leaders: dict = {}
+    for t in tickets:
+        if t.stats.mode == "batched":
+            leaders.setdefault(t.stats.extra["batch_leader"], t)
+    sizes: dict = {}
+    for t in leaders.values():
+        n = t.stats.batched_with + 1
+        sizes[n] = sizes.get(n, 0) + 1
+    graph_s = (sum(t.stats.extra.get("graph_ms", 0.0)
+                   for t in leaders.values())
+               + sum(t.stats.extra.get("graph_ms", 0.0) for t in tickets
+                     if t.stats.mode != "batched")) / 1e3
+    waits = [t.stats.queue_wait_ms for t in tickets
+             if t.stats.queue_wait_ms is not None]
+    return {
+        "wall_s": wall, "qps": len(tickets) / wall,
+        "p50_ms": _pct(lat, 0.5) * 1e3, "p99_ms": _pct(lat, 0.99) * 1e3,
+        "queue_wait_p50_ms": _pct(waits, 0.5),
+        "queue_wait_p99_ms": _pct(waits, 0.99),
+        "modes": {m: sum(t.stats.mode == m for t in tickets)
+                  for m in sorted({t.stats.mode for t in tickets})},
+        "batched_dispatches": len(leaders),
+        "batch_sizes": dict(sorted(sizes.items())),
+        "distinct_rows": sum(t.stats.extra["batch_rows"]
+                             for t in leaders.values()),
+        "dedup": sum(t.stats.extra["dedup"] for t in leaders.values()),
+        "graphs_replayed": sum(len(t.stats.extra["graphs"])
+                               for t in leaders.values()),
+        "busy_share": graph_s / wall}
+
+
+def phase_service(session, ck, loop: bool = False) -> dict:
+    """The query service on the replay phase's SF10 session: the three
+    dashboard templates' covering warm-up texts twice each, the first
+    SERVICE_SERIAL of SERVICE_QUERIES queries drawn round-robin from the
+    pool serially through Session.sql, then each template's held batches
+    (SERVICE_HELD: every rung's batched graph captured, the batch of 16
+    one graph, batched_with 15), the coverage probe's held batch, then
+    SERVICE_CLIENTS client threads on one QueryService at the reference's
+    defaults submitting all SERVICE_QUERIES. With ``loop`` the clients run
+    twice more, with the loop form of batching (loop_param_batch) and
+    then the batched graphs again. Every result must equal the serial
+    result of its text bit for bit, and one result of each distinct text
+    the numpy oracle. Fails on a host fallback, a batch failure of another
+    class than BATCH_ERRORS_OK, no batched dispatch at SERVICE_CLIENTS
+    clients, a held batch not served as one batched dispatch over the
+    rungs batch_rungs gives, a second capture of one (program, batch
+    capacity), and a kernel never launched inside a batched capture.
+    Launch counters zeroed just before, read just after. Returns the
+    counter totals and the launches made inside batched captures."""
+    import torch
+    from nds_tpu_torch.engine.torch_backend import compiled
+    from nds_tpu_torch.engine.torch_backend.executor import TorchExecutor
+    from nds_tpu_torch.service import QueryService, ServiceConfig
+    from nds_tpu_torch.validate import table_mismatches
+    on_card = session.device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    ck.reset_launches()                 # the path starts here
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    session.config.jit_plans = True
+    failed: list = []
+    pool, held = service_pool(), service_held()
+    probe = [COVERAGE_PROBE.format(a=20 + i, b=60 + 2 * i)
+             for i in range(COVERAGE_ROWS)]
+    workload = [pool[i % len(pool)][1] for i in range(SERVICE_QUERIES)]
+    t0 = time.perf_counter()
+    warm = [sql for _l, sql in service_warm()] + [
+        COVERAGE_PROBE.format(a=20, b=60 + 2 * (COVERAGE_ROWS - 1))]
+    for sql in warm:
+        for _ in range(2):              # record, then compile+run
+            session.sql(sql)
+            failed += [f"warm-up: host fallback {session.last_fallbacks}"] \
+                if session.last_fallbacks else []
+    warm_s = time.perf_counter() - t0
+    # serial: one query at a time on the session
+    serial: dict = {}
+    lat = []
+    t0 = time.perf_counter()
+    for sql in workload[:SERVICE_SERIAL]:
+        q0 = time.perf_counter()
+        got = session.sql(sql)
+        sync()
+        lat.append(time.perf_counter() - q0)
+        if session.last_fallbacks:
+            failed.append(f"serial: host fallback {session.last_fallbacks}")
+        if sql not in serial:
+            serial[sql] = got
+        elif got.to_pylist() != serial[sql].to_pylist():
+            failed.append(f"serial repeats differ: {sql}")
+    serial_s = time.perf_counter() - t0
+    tickets: list = []
+    names: dict = {}
+    held_peaks: dict = {}
+    phase_peak = 0
+    runs: dict = {}
+    svc = QueryService(session, ServiceConfig())
+    with svc:
+        # the held batches: each released at once, one batched dispatch
+        for name, texts in list(held.items()) + [("kpi (probe)", probe)]:
+            sizes = SERVICE_HELD if name in held else (len(texts),)
+            for k in sizes:
+                ts, grown, peak0 = _held_dispatch(
+                    svc, texts[:k], f"held-{name}-{k}", on_card)
+                phase_peak = max(phase_peak, peak0)
+                tickets += ts
+                names[ts[0].fp] = name
+                caps = {t.stats.extra.get("batch_caps") for t in ts}
+                held_peaks[f"{name} held {k}"] = {
+                    "caps": ts[0].stats.extra.get("batch_caps"),
+                    "peak_gb": grown / 2 ** 30}
+                bw = sorted({t.stats.batched_with for t in ts})
+                if any(t.stats.mode != "batched" for t in ts) or \
+                        bw != [k - 1] or \
+                        caps != {tuple(compiled.batch_rungs(k))}:
+                    failed.append(
+                        f"held {name} {k}: modes "
+                        f"{sorted({t.stats.mode for t in ts})}, batched_with "
+                        f"{bw}, capacities {caps}")
+        # SERVICE_CLIENTS clients submitting the whole workload
+        batched = TorchExecutor.run_param_batch
+        for tag in ["graphs"] + (["loop", "graphs again"] if loop else []):
+            if tag == "loop":
+                TorchExecutor.run_param_batch = loop_param_batch
+            try:
+                ts, lat_c, wall, errors = _client_run(svc, workload,
+                                                      tag[0])
+            finally:
+                TorchExecutor.run_param_batch = batched
+            runs[tag] = (ts, lat_c, wall)
+            failed += errors
+            tickets += ts
+    totals = dict(ck.LAUNCHES)          # read just after the path
+    peak_gb = max(phase_peak, torch.cuda.max_memory_allocated()) / 2 ** 30 \
+        if on_card else 0.0
+    # bit-identical to serial (a text the serial run did not have runs
+    # serially now); then each distinct text against the oracle
+    for t in tickets:
+        if t.query not in serial:
+            serial[t.query] = session.sql(t.query)
+        if t.result().to_pylist() != serial[t.query].to_pylist():
+            failed.append(f"{t.label} differs from serial: {t.query}")
+    firsts: dict = {}
+    for t in tickets:
+        firsts.setdefault(t.query, t.result())
+    for st in [t.stats for t in tickets]:
+        if st.fallback_reasons:
+            failed.append(f"service: host fallback {st.fallback_reasons}")
+    errs: dict = {}
+    for t in tickets:
+        e = t.stats.extra.get("batch_error")
+        if e is not None:
+            errs[e] = errs.get(e, 0) + 1
+    bad = {e: n for e, n in errs.items() if e not in BATCH_ERRORS_OK}
+    if bad:
+        failed.append(f"batch failures {bad}")
+    for tag in ("graphs", "graphs again"):
+        if tag in runs and not any(t.stats.mode == "batched"
+                                   for t in runs[tag][0]):
+            failed.append(f"no batched dispatch at {SERVICE_CLIENTS} "
+                          f"clients ({tag})")
+    # per (program, capacity): its captures and its graph's ms
+    leaders: dict = {}
+    for t in tickets:
+        if t.stats.mode == "batched":
+            leaders.setdefault(t.stats.extra["batch_leader"], t)
+    programs: dict = {}
+    captured = {k: 0 for k in ck.LAUNCHES}
+    for lead in leaders.values():
+        for g in lead.stats.extra["graphs"]:
+            key = f"{names.get(lead.fp, lead.fp[:12])}@{g['cap']}"
+            pr = programs.setdefault(key, {"graphs": 0, "captures": 0,
+                                           "graph_ms": []})
+            pr["graphs"] += 1
+            pr["graph_ms"].append(g.get("graph_ms", 0.0))
+            if "capture_s" in g:
+                pr["captures"] += 1
+                pr["capture_s"] = g["capture_s"]
+                pr["pool_growth_gb"] = g["pool_growth_bytes"] / 2 ** 30
+                for k, v in g["captured_launches"].items():
+                    captured[k] += v
+    for key, pr in programs.items():
+        if pr["captures"] > 1:
+            failed.append(f"{key}: captured {pr['captures']} times")
+        pr["graph_ms"] = statistics.median(pr["graph_ms"])
+    missing = [k for k, v in captured.items() if v == 0]
+    if missing:
+        failed.append(f"kernels never launched inside a batched capture: "
+                      f"{missing}")
+    t0 = time.perf_counter()
+    texts = sorted(firsts)
+    oracle = oracle_results(session, texts)
+    for sql, (want, _s) in zip(texts, oracle):
+        mism = table_mismatches(firsts[sql], want)
+        if mism:
+            failed.append(f"disagrees with the numpy oracle: {sql}: {mism}")
+    line = {
+        "queries": SERVICE_QUERIES, "clients": SERVICE_CLIENTS,
+        "distinct_texts": len(texts), "warm_s": warm_s,
+        "serial_queries": SERVICE_SERIAL,
+        "serial_s": serial_s, "serial_qps": SERVICE_SERIAL / serial_s,
+        "serial_p50_ms": _pct(lat, 0.5) * 1e3,
+        "serial_p99_ms": _pct(lat, 0.99) * 1e3,
+        "service": {tag: _run_fields(*runs[tag]) for tag in runs},
+        "batch_errors": errs, "programs": programs,
+        "held_peaks": held_peaks, "peak_mem_gb": peak_gb,
+        "launches": totals, "batched_captured_launches": captured,
+        "oracle_s": time.perf_counter() - t0}
+    emit("service", **line)
+    if failed:
+        raise SystemExit("service: " + "\n".join(failed[:20]))
+    return {"totals": totals, "captured": captured}
 
 
 # ---------------------------------------------------------------------------
@@ -1246,7 +1740,8 @@ def graph_timed(kern, args, kwargs) -> dict:
 
 
 def phase_kernels(ck, recorder, launches, replay, streamed: dict,
-                  device: str = "cuda", parents: dict | None = None) -> list:
+                  service: dict, device: str = "cuda",
+                  parents: dict | None = None) -> list:
     """Each kernel at the largest call of each regime the query phase gave
     it (the largest of all is the kernel's row, also timed as a graph
     replay), then on the edge cases; every call bit-identical to the plain
@@ -1256,7 +1751,9 @@ def phase_kernels(ck, recorder, launches, replay, streamed: dict,
     ``replay`` the replay phase's (``captured``: launches made while a
     graph was captured; a graph's replays call no wrapper and count
     nothing); ``streamed`` the streamed phases', by phase. A row's
-    ``launches`` sums the query phase's and the streamed phases'."""
+    ``launches`` sums the query phase's, the streamed phases' and the
+    service phase's (``service``: its totals, and the launches made while
+    its batched graphs were captured)."""
     import torch
     dev = torch.device(device)
     parents = parents or {}
@@ -1287,10 +1784,14 @@ def phase_kernels(ck, recorder, launches, replay, streamed: dict,
                     "source": f"nds_tpu_torch/csrc/{ck.SOURCES[name]}",
                     "replaces": REPLACES[name],
                     "launches": launches[name] + sum(
-                        st["totals"][name] for st in streamed.values()),
+                        st["totals"][name] for st in streamed.values())
+                    + service["totals"][name],
                     "query_launches": launches[name],
                     "stream_launches": {ph: st["totals"][name]
                                         for ph, st in streamed.items()},
+                    "service_launches": service["totals"][name],
+                    "service_captured_launches":
+                    service["captured"][name],
                     "max_abs_err": err, "ms": m["ms"],
                     "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                     "bound_by": "bytes", "library_ms": m["library_ms"],
@@ -1339,6 +1840,11 @@ def main() -> int:
                     help="also time the kernels of another checkout (e.g. "
                     "the parent commit, unpacked by git archive) on the "
                     "same inputs, in turns with this tree's; repeatable")
+    ap.add_argument("--service_loop", action="store_true",
+                    help="in phase service, also run the clients with the "
+                    "loop form of batching (each distinct row its own "
+                    "replay of the single program), then with the batched "
+                    "graphs again")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1373,6 +1879,7 @@ def main() -> int:
             phase_profile(session)
         recorder.unwrap()
         replay = phase_replay(session, ck, oracle)
+        service = phase_service(session, ck, loop=args.service_loop)
         del session             # its tables, host and device, are done
         gc.collect()
         torch.cuda.empty_cache()
@@ -1394,7 +1901,7 @@ def main() -> int:
                 for reg, a, _, callers in v}
             for k, v in recorder.regimes().items()})
         rows = phase_kernels(ck, recorder, launches, replay, streamed,
-                             parents=parents)
+                             service, parents=parents)
         phase_templates(nt, ck, args.templates_sf, tmp)
         finish_streamed(streamed)
         for row in rows:
@@ -1406,8 +1913,9 @@ def main() -> int:
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     # each row's "launches" counts the calls into the kernel's launch
-    # entry in the main paths: the eager query phase and the two streamed
-    # phases (apart in "query_launches" and "stream_launches");
+    # entry in the main paths: the eager query phase, the streamed phases
+    # and the service phase (apart in "query_launches", "stream_launches"
+    # and "service_launches");
     # "replay_launches" the replay phase's, and "captured_launches" those
     # of them made while a CUDA graph was captured: a graph's replays run
     # the kernel without calling its wrapper, so they add to no count

@@ -20,9 +20,18 @@ one packed buffer (``narrow_lanes``) with dictionary and run-length
 columns (``encoded_exec``), its lanes and encodings chosen once per scan
 group from the table's stats (``column_stats``, ``column_enc_stats``).
 
-Not in this slice: sharded morsels, feedback-adapted schedules and
-preemption; the result cache, query log, system tables, DML and EXPLAIN
-ANALYZE.
+Serving (the query service, ``nds_tpu_torch/service``): statements
+serialize on ``_sql_lock`` (``sql`` and ``service_run``, which returns a
+result with its typed ``ExecStats`` atomically), while the service's
+planner threads read the catalog and the column stats under ``_lock``;
+``abandon_inflight`` swaps fresh locks in after a watchdog gives a
+dispatch up, and the streamed path yields the device lane between scan
+groups and between morsels to a preemption hook (``_maybe_preempt``).
+Every statement's stats land in ``last_exec_stats_typed`` through
+``_finish_exec_stats``; ``last_stats`` stays the dict view.
+
+Not in this slice: sharded morsels and feedback-adapted schedules; the
+result cache, system tables, DML and EXPLAIN ANALYZE.
 """
 from __future__ import annotations
 
@@ -38,6 +47,10 @@ import pyarrow.dataset as pa_dataset
 import torch
 
 from ..config import EngineConfig
+from ..obs import metrics as _metrics
+from ..obs.profile import DEVICE_MEM
+from ..obs.stats import ExecStats
+from ..obs.trace import TRACER
 from ..sql import parse_sql
 from . import arrow_bridge
 from .column import Table
@@ -64,6 +77,14 @@ class Session:
         if self.config.verify_plans != "off":
             raise ValueError("the port supports verify_plans='off' only")
         self.device = resolve_device(device or self.config.device)
+        # _sql_lock serializes whole statements (sql, service_run): the
+        # executor, the streamed state and the last-statement views stay
+        # single-writer under many calling threads. _lock guards the
+        # caches that work outside a statement reads and fills (the query
+        # service's planner threads plan and read column stats while the
+        # device lane runs). Both are RLocks, taken _sql_lock -> _lock
+        self._sql_lock = threading.RLock()
+        self._lock = threading.RLock()
         self._loaders: dict[str, Callable] = {}
         # table -> callable(columns) yielding arrow tables/batches in order,
         # the morsel source of a streamed scan
@@ -95,6 +116,20 @@ class Session:
         # "compile+run", "compiled", "adopted" or "eager"), device_ms,
         # segments, nojit_reason
         self.last_stats: dict = {}
+        # the typed record of the last statement (_finish_exec_stats)
+        self.last_exec_stats_typed: Optional[ExecStats] = None
+        # label of the statement in flight, and its query-log context
+        self._active_label: str = ""
+        self._stmt_t0: float = 0.0
+        self._stmt_log: bool = True
+        # the snapshot version of an attached warehouse: none in the port
+        self._warehouse_version: Optional[int] = None
+        # morsel-boundary preemption: the query service installs a hook
+        # the streamed path calls between scan groups and morsels (None:
+        # one attribute read); _in_preempt keeps a nested statement from
+        # being preempted in turn
+        self._preempt_hook = None
+        self._in_preempt = False
 
     def _dec_as_int(self) -> bool:
         return self.config.decimal_physical == "i64"
@@ -113,22 +148,23 @@ class Session:
                     unique_cols, loader: Callable, batches: Callable,
                     stats: Optional[Callable] = None,
                     enc_stats: Optional[Callable] = None) -> None:
-        self._schemas[name] = (list(names), list(dtypes))
-        self._set_unique_cols(name, names, unique_cols)
-        self._est_rows[name] = est_rows
-        self._loaders[name] = loader
-        self._batch_sources[name] = batches
-        for src, fn in ((self._stats_sources, stats),
-                        (self._enc_stats_sources, enc_stats)):
-            if fn is None:
-                src.pop(name, None)
-            else:
-                src[name] = fn
-        for k in [k for k in self._cache if k[0] == name]:
-            del self._cache[k]
-        self._col_stats.pop(name, None)
-        self._enc_stats.pop(name, None)
-        self._generation += 1
+        with self._lock:
+            self._schemas[name] = (list(names), list(dtypes))
+            self._set_unique_cols(name, names, unique_cols)
+            self._est_rows[name] = est_rows
+            self._loaders[name] = loader
+            self._batch_sources[name] = batches
+            for src, fn in ((self._stats_sources, stats),
+                            (self._enc_stats_sources, enc_stats)):
+                if fn is None:
+                    src.pop(name, None)
+                else:
+                    src[name] = fn
+            for k in [k for k in self._cache if k[0] == name]:
+                del self._cache[k]
+            self._col_stats.pop(name, None)
+            self._enc_stats.pop(name, None)
+            self._generation += 1
 
     # -- registration -------------------------------------------------------
     def register_arrow(self, name: str, table: pa.Table,
@@ -224,37 +260,41 @@ class Session:
         """{column: (lo, hi)} value ranges of a registered table in engine
         units (scaled ints for decimals, epoch days for dates); {} where
         its registration has no stats source (CSV). Computed once per
-        registration; a scan group's lanes come from them."""
-        if name not in self._col_stats:
-            src = self._stats_sources.get(name)
-            stats = {}
-            if src is not None:
-                try:
-                    stats = src() or {}
-                except Exception:
-                    stats = {}  # stats are an optimization, never a failure
-            self._col_stats[name] = stats
-        return self._col_stats[name]
+        registration; a scan group's lanes come from them. Thread-safe:
+        the service's planner threads read it while the lane runs."""
+        with self._lock:
+            if name not in self._col_stats:
+                src = self._stats_sources.get(name)
+                stats = {}
+                if src is not None:
+                    try:
+                        stats = src() or {}
+                    except Exception:
+                        stats = {}  # an optimization, never a failure
+                self._col_stats[name] = stats
+            return self._col_stats[name]
 
     def column_enc_stats(self, name: str, columns=None) -> dict:
         """{column: {"distinct": sorted int64 array or None, "runs": int,
         "rows": int}} encoding stats of (some of) a registered table's
         columns in engine units; {} where its registration has no source.
         Computed once per column and registration, for the columns a scan
-        group streams; a group's encodings come from them."""
-        src = self._enc_stats_sources.get(name)
-        if src is None:
-            return {}
-        if columns is None:
-            columns = self._schemas.get(name, ([], []))[0]
-        cache = self._enc_stats.setdefault(name, {})
-        for c in columns:
-            if c not in cache:
-                try:
-                    cache[c] = src(c)
-                except Exception:
-                    cache[c] = None  # stats are an optimization, never fatal
-        return {c: cache[c] for c in columns if cache.get(c)}
+        group streams; a group's encodings come from them. Thread-safe
+        like column_stats."""
+        with self._lock:
+            src = self._enc_stats_sources.get(name)
+            if src is None:
+                return {}
+            if columns is None:
+                columns = self._schemas.get(name, ([], []))[0]
+            cache = self._enc_stats.setdefault(name, {})
+            for c in columns:
+                if c not in cache:
+                    try:
+                        cache[c] = src(c)
+                    except Exception:
+                        cache[c] = None  # an optimization, never fatal
+            return {c: cache[c] for c in columns if cache.get(c)}
 
     def iter_morsels(self, name: str, columns: list[str], rows: int):
         """Yield host Tables of at most `rows` rows each, WITHOUT
@@ -296,25 +336,39 @@ class Session:
 
     def load_table(self, name: str, columns=None) -> Table:
         """Load a table, optionally projected to `columns`; cached per
-        projection, and a cached full table serves any subset."""
-        key = (name, tuple(columns) if columns is not None else None)
-        if key in self._cache:
+        projection, and a cached full table serves any subset.
+        Thread-safe: the projection cache fills under the state lock."""
+        with self._lock:
+            key = (name, tuple(columns) if columns is not None else None)
+            if key in self._cache:
+                return self._cache[key]
+            if columns is not None and (name, None) in self._cache:
+                full = self._cache[(name, None)]
+                idx = {n: i for i, n in enumerate(full.names)}
+                sub = Table(list(columns),
+                            [full.columns[idx[c]] for c in columns])
+                self._cache[key] = sub
+                return sub
+            self._cache[key] = self._loaders[name](columns)
             return self._cache[key]
-        if columns is not None and (name, None) in self._cache:
-            full = self._cache[(name, None)]
-            idx = {n: i for i, n in enumerate(full.names)}
-            sub = Table(list(columns), [full.columns[idx[c]] for c in columns])
-            self._cache[key] = sub
-            return sub
-        self._cache[key] = self._loaders[name](columns)
-        return self._cache[key]
 
     # -- query --------------------------------------------------------------
-    def _catalog(self) -> Catalog:
-        return Catalog({name: (sch[0], sch[1], self._est_rows.get(name, 1000))
-                        for name, sch in self._schemas.items()},
-                       dec_enabled=self._dec_as_int(),
-                       unique_cols=dict(self._unique_cols),
+    def _est_rows_for(self, name: str, default: int,
+                      label: Optional[str] = None) -> int:
+        """Planning-time row estimate of `name`: the registered estimate.
+        (`label` scopes the reference's observed-row feedback, which the
+        port has not: its planner threads pass it all the same.)"""
+        with self._lock:
+            return self._est_rows.get(name, default)
+
+    def _catalog(self, label: Optional[str] = None) -> Catalog:
+        with self._lock:
+            tables = {name: (sch[0], sch[1],
+                             self._est_rows_for(name, 1000, label))
+                      for name, sch in self._schemas.items()}
+            unique = dict(self._unique_cols)
+        return Catalog(tables, dec_enabled=self._dec_as_int(),
+                       unique_cols=unique,
                        late_mat=self.config.late_materialization,
                        late_mat_min_rows=self.config.late_mat_min_rows,
                        verify_plans="off")
@@ -341,36 +395,194 @@ class Session:
     def plan(self, query: str):
         return Planner(self._catalog()).plan_query(parse_sql(query))
 
-    def sql(self, query: str, backend: Optional[str] = None) -> Table:
+    def sql(self, query: str, backend: Optional[str] = None,
+            label: Optional[str] = None) -> Table:
         """Run a query; backend "torch" (the device path, the default) or
-        "numpy" (the host oracle)."""
+        "numpy" (the host oracle). `label` names the statement in program
+        labels, spans and the query log (a short hash of the text by
+        default). Thread-safe: callers serialize on the statement lock,
+        and last_stats describes the last statement of any caller (a
+        caller that needs its own uses service_run)."""
+        if "system." in query or "SYSTEM." in query:
+            self._maybe_system_query(query)
+        with self._sql_lock:
+            return self._sql_locked(query, backend, label)
+
+    def service_run(self, query: str, backend: Optional[str] = None,
+                    label: Optional[str] = None, plan=None):
+        """The query service's entry: as sql(), but returns (Table,
+        ExecStats) atomically, and takes the plan the service's planner
+        stage built (a first sighting then skips parsing and planning).
+        The service cuts the statement's query-log row itself."""
+        with self._sql_lock:
+            table = self._sql_locked(query, backend, label, plan=plan,
+                                     log_row=False)
+            return table, self.last_exec_stats_typed
+
+    def abandon_inflight(self) -> None:
+        """A deadline just abandoned a worker thread mid-statement (python
+        threads cannot be killed): the zombie may still hold this
+        session's locks, so fresh ones go in and the next statement runs
+        at once. The zombie may still be using the card and the executor
+        then, as in the reference: bounded by its hang, its caller has
+        already failed the query."""
+        self._sql_lock = threading.RLock()
+        self._lock = threading.RLock()
+
+    # -- morsel-boundary preemption (the service's fair scheduler) -----------
+    def _maybe_preempt(self) -> None:
+        """Yield point of the streamed path, between scan groups and
+        between morsels: with a hook installed, hand the device lane to
+        short tickets now. Never re-entered from a preempting statement."""
+        hook = self._preempt_hook
+        if hook is not None and not self._in_preempt:
+            hook()
+
+    def preempt_scope(self):
+        """Context for a statement nested at a yield point, on the thread
+        that holds the statement lock (the RLock's re-entry makes it
+        legal): the outer statement's views and its device-memory window
+        are saved and restored, and the nested one cannot be preempted."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def _scope():
+            saved = (self.last_fallbacks, self.last_stats,
+                     self.last_exec_stats_typed, self._active_label,
+                     self._stmt_t0, self._stmt_log)
+            win = DEVICE_MEM.window_peak()
+            self._in_preempt = True
+            try:
+                yield self
+            finally:
+                self._in_preempt = False
+                (self.last_fallbacks, self.last_stats,
+                 self.last_exec_stats_typed, self._active_label,
+                 self._stmt_t0, self._stmt_log) = saved
+                DEVICE_MEM.restore_window(win)
+        return _scope()
+
+    def attach_result_cache(self, cache) -> None:
+        raise NotImplementedError(
+            "the semantic result cache (engine/result_cache.py) is not "
+            "ported yet: ROADMAP A.3's remainder, item 1")
+
+    @staticmethod
+    def _maybe_system_query(query: str) -> None:
+        """Raise for a statement over ``system.*`` tables: the system
+        catalog (obs/system_tables.py) is not ported yet. A statement that
+        only mentions the prefix in a literal runs as usual."""
+        from ..sql import ast_nodes as A
+        names: set = set()
+        seen: set = set()
+
+        def walk(x):
+            if x is None or id(x) in seen:
+                return
+            seen.add(id(x))
+            if isinstance(x, A.TableRef):
+                names.add(x.name)
+            if isinstance(x, (list, tuple)):
+                for item in x:
+                    walk(item)
+            elif hasattr(x, "__dict__"):
+                for v in vars(x).values():
+                    walk(v)
+        walk(parse_sql(query))
+        if any(n.lower().startswith("system.") for n in names):
+            raise NotImplementedError(
+                "system.* tables (obs/system_tables.py) are not ported "
+                "yet: ROADMAP A.5")
+
+    @staticmethod
+    def _auto_label(query: str) -> str:
+        return "q" + hashlib.sha1(query.encode()).hexdigest()[:8]
+
+    def _sql_locked(self, query: str, backend: Optional[str],
+                    label: Optional[str], plan=None,
+                    log_row: bool = True) -> Table:
         backend = backend or "torch"
         if backend not in ("torch", "numpy"):
             raise ValueError(f"unknown backend {backend!r} "
                              "(expected 'torch' or 'numpy')")
         self.last_fallbacks = []
-        if backend == "numpy":
-            return Executor(self.load_table).execute(self.plan(query))
-        self.last_stats = {}
+        self.last_exec_stats_typed = None
         # units are labelled "<label>/<unit>" in the executor's messages
-        self._active_label = "q" + hashlib.sha1(query.encode()).hexdigest()[:8]
-        refused = None
-        if self.config.out_of_core:
-            result = self._sql_streaming(query)
-            if result is not None:
-                return result
-            refused = self._stream_refused.get(query)
-        from .torch_backend.device import to_host
-        ex = self._executor()
-        ex.query_label = self._active_label
-        with ex.on_stream():
-            result = to_host(ex.run_query(("sql", query),
-                                          lambda: self.plan(query)))
-        self.last_fallbacks = list(ex.fallback_nodes)
-        self.last_stats = dict(ex.last_stats)
-        if refused:
-            self.last_stats["stream_refused"] = refused
-        return result
+        self._active_label = label or self._auto_label(query)
+        self._stmt_t0 = time.perf_counter()
+        self._stmt_log = log_row
+        DEVICE_MEM.mark_window()
+        _metrics.QUERIES_RUN.inc()
+        with TRACER.span("query", label=self._active_label,
+                         backend=backend):
+            if backend == "numpy":
+                return Executor(self.load_table).execute(
+                    plan if plan is not None else self.plan(query))
+            self.last_stats = {}
+            refused = None
+            if self.config.out_of_core:
+                result = self._sql_streaming(query)
+                if result is not None:
+                    self._finish_exec_stats(
+                        _typed_stats(self.last_stats, self.last_fallbacks),
+                        rows=result.num_rows)
+                    return result
+                refused = self._stream_refused.get(query)
+            from .torch_backend.device import to_host
+            ex = self._executor()
+            ex.query_label = self._active_label
+
+            def factory():
+                if plan is not None:
+                    return plan
+                with TRACER.span("plan", label=self._active_label):
+                    return self.plan(query)
+            with ex.on_stream():
+                result = to_host(ex.run_query(("sql", query), factory))
+            self.last_fallbacks = list(ex.fallback_nodes)
+            self.last_stats = dict(ex.last_stats)
+            if refused:
+                self.last_stats["stream_refused"] = refused
+            self._finish_exec_stats(
+                _typed_stats(self.last_stats, self.last_fallbacks),
+                rows=result.num_rows)
+            return result
+
+    def _finish_exec_stats(self, stats: ExecStats,
+                           rows: Optional[int] = None,
+                           log: Optional[bool] = None) -> None:
+        """The one place a statement's typed stats land: the statement's
+        device-memory window, ``last_exec_stats_typed``, the process
+        registry's counters and, with the query log on, its row (``log``
+        overrides the statement's flag: the service passes False for its
+        last-dispatch view and logs per ticket)."""
+        stats.mem_peak_bytes = DEVICE_MEM.window_peak()
+        stats.mem_live_bytes = DEVICE_MEM.live
+        if self.config.scan_budget_gb > 0:
+            stats.mem_headroom_bytes = \
+                int(self.config.scan_budget_gb * (1 << 30)) - \
+                stats.mem_peak_bytes
+        self.last_exec_stats_typed = stats
+        from ..obs.query_log import QUERY_LOG
+        if QUERY_LOG.enabled and (self._stmt_log if log is None else log):
+            QUERY_LOG.record(
+                stats, source="session", label=self._active_label,
+                wall_ms=round((time.perf_counter() - self._stmt_t0)
+                              * 1000.0, 3) if self._stmt_t0 else None,
+                rows=rows)
+        if stats.fallback_reasons:
+            _metrics.HOST_FALLBACKS.inc(len(stats.fallback_reasons))
+        if stats.prefetch_error_details:
+            _metrics.PREFETCH_ERRORS.inc(len(stats.prefetch_error_details))
+        if stats.scan_passes:
+            _metrics.SCAN_PASSES.inc(stats.scan_passes)
+        if stats.morsels:
+            _metrics.MORSELS.inc(stats.morsels)
+        if stats.bytes_uploaded:
+            _metrics.BYTES_UPLOADED.inc(stats.bytes_uploaded)
+        if stats.host_decode_ms:
+            _metrics.HOST_DECODE_MS.inc(
+                round(sum(stats.host_decode_ms.values()), 3))
 
     # -- the streamed (out-of-core) path -------------------------------------
     def _stream_config_key(self) -> tuple:
@@ -482,6 +694,9 @@ class Session:
                         fallbacks += ex.fallback_nodes
             for group, gstate in zip(groups, sent["gstates"]):
                 sinks = [(jobs[ji], partials[ji]) for ji, _bi in group.members]
+                # scan-group boundary: yield the device lane to preempting
+                # tickets (no hook installed: a no-op)
+                self._maybe_preempt()
                 out = self._stream_group(group, ex, gstate, sinks,
                                          prefetch_errs, pstats)
                 if isinstance(out, str):
@@ -758,6 +973,9 @@ class Session:
             # the first morsel's decode and copy are in no run's shadow
             pstats["stage_wait_ms"] += (time.perf_counter() - t0) * 1000.0
             while morsel is not None:
+                # morsel boundary: the staging thread is joined and the
+                # last morsel's partials are on the host
+                self._maybe_preempt()
                 ex._scan_cache[mkey] = slot.load()
                 if state["cqs"] is not None and not _same_dicts(
                         state["dicts"], str_dicts()):
@@ -823,6 +1041,28 @@ class Session:
             _close_group(state)
             return "empty source"   # the in-core path handles it
         return count, timing["host_ms"]
+
+
+#: ExecStats fields a statement's stats dict fills by name
+_STAT_FIELDS = frozenset(f for f in ExecStats.__dataclass_fields__
+                         if f not in ("extra", "fallback_reasons",
+                                      "prefetch_error_details",
+                                      "node_stats"))
+
+
+def _typed_stats(stats: dict, fallbacks: list) -> ExecStats:
+    """The typed record of a statement's stats dict (the port's
+    ``last_stats``): its keys with a field of their own fill it, the rest
+    ride ``extra`` verbatim."""
+    extra = {k: v for k, v in stats.items()
+             if k not in _STAT_FIELDS and k not in (
+                 "node_rows", "fallbacks", "prefetch_error_details")}
+    return ExecStats(
+        fallback_reasons=list(fallbacks or ()),
+        prefetch_error_details=list(stats.get("prefetch_error_details")
+                                    or ()),
+        node_stats=stats.get("node_rows"), extra=extra,
+        **{k: v for k, v in stats.items() if k in _STAT_FIELDS})
 
 
 def _same_dicts(recorded: list, current: list) -> bool:

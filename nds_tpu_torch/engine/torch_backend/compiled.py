@@ -17,6 +17,12 @@ checks in one synchronise. On the CPU the replay runs without a capture,
 its plain form. XLA's ahead-of-time compile and cost analysis have no
 counterpart here.
 
+``BatchedQuery`` replays one unit program over a stacked batch of
+parameter vectors, the query service's compatible-plan batching: on CUDA
+one graph per (program, batch capacity) runs the unit's replay once a row.
+A batch splits into rungs of the capacity ladder (``batch_rungs``), so
+that no graph runs a padding row.
+
 A program is bound to its scans' wire layout (device.scan_layout: a
 packed morsel slot's lanes, encodings and codebook identities), as the
 reference's pytree aux binds its jit cache entry: a run over another
@@ -37,6 +43,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...obs import metrics as _metrics
+from ...obs.flight import FLIGHT
+from ...resilience import FAULTS
 from ..plan import MaterializedNode, iter_plan_nodes
 from . import cuda_kernels as _ck
 from .device import (DTable, PackedTable, Uploads, bucket, phys_dtype,
@@ -110,9 +119,15 @@ def clear_shared_programs() -> None:
         _PROGRAM_STRIKES.clear()
 
 
-def strike_shared_program(fp: Optional[str]) -> bool:
-    """Record one strike against a shared program; at QUARANTINE_STRIKES
-    the entry is evicted. Returns True when this strike evicted it."""
+def strike_shared_program(fp: Optional[str], reason: str = "") -> bool:
+    """Record one fault or ReplayMismatch strike against a shared program.
+
+    At QUARANTINE_STRIKES the entry is quarantined: evicted from the
+    registry (its strike history cleared), so that the next use records
+    and publishes a fresh schedule instead of every adopter replaying the
+    poisoned one. Returns True when this strike evicted the entry; counted
+    in ``quarantined_programs`` and recorded as a flight ``quarantine``
+    event with `reason`."""
     if fp is None:
         return False
     with _SHARED_LOCK:
@@ -121,7 +136,28 @@ def strike_shared_program(fp: Optional[str]) -> bool:
         if n < QUARANTINE_STRIKES:
             return False
         _PROGRAM_STRIKES.pop(fp, None)
-        return _SHARED_PROGRAMS.pop(fp, None) is not None
+        if _SHARED_PROGRAMS.pop(fp, None) is None:
+            return False
+    FLIGHT.record("quarantine", fp=fp[:12], strikes=n,
+                  reason=reason or "repeated failures")
+    _metrics.QUARANTINED_PROGRAMS.inc()
+    return True
+
+
+def shared_programs_snapshot() -> list:
+    """One row per shared registry entry, cut atomically under the
+    registry lock: ``hits`` counts adoptions, ``compiles`` the programs
+    published under the fingerprint, ``strikes`` the live quarantine
+    strikes (an entry at QUARANTINE_STRIKES is already evicted)."""
+    with _SHARED_LOCK:
+        return [{"fingerprint": fp,
+                 "hits": sh.get("adoptions", 0),
+                 "compiles": sh.get("compiles", 0),
+                 "strikes": _PROGRAM_STRIKES.get(fp, 0),
+                 "volatile": bool(sh.get("volatile")),
+                 "nojit": bool(sh.get("nojit")),
+                 "decisions": len(sh.get("decisions", ()))}
+                for fp, sh in sorted(_SHARED_PROGRAMS.items())]
 
 
 def absolve_shared_program(fp: Optional[str]) -> None:
@@ -219,6 +255,35 @@ def verify_schedule(decisions: list, checks_host: list) -> None:
 
 def _no_load(name: str, columns=None):
     raise NotJittable(f"table load of {name!r} under replay")
+
+
+def _replay_without_syncs(label: str, replay) -> None:
+    """A capture's first replay, under the sync debug mode: it uploads the
+    program's constants, sizes kernel scratch and runs each kernel's
+    one-time setup, and fails naming every host sync it meets (a capture
+    would fail on them)."""
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            replay()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    syncs = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                    for w in caught if "called a synchronizing"
+                    in str(w.message)})
+    if syncs:
+        raise RuntimeError(f"{label}: the replay waits on the device at "
+                           f"{syncs}")
+
+
+def _program_made() -> None:
+    """A program is made (a CUDA graph captured, or a program's first run
+    on the CPU): the reference's compile seam, its fault point and its
+    ``compiles`` counter."""
+    FAULTS.fire("jax.compile")
+    _metrics.COMPILES.inc()
 
 
 def _flat(t: DTable) -> list:
@@ -361,6 +426,7 @@ class CompiledQuery:
             with torch.cuda.stream(self.owner.stream):
                 self._prepared = self._capture(scans, values)
         else:
+            _program_made()
             self._run_plain(scans, values)
         self._first = False
 
@@ -372,11 +438,14 @@ class CompiledQuery:
         ReplayMismatch when a check fails."""
         scans = self._args(scans, values)
         first = self._first
+        FAULTS.fire("jax.execute")
         t1 = time.perf_counter()
         if self.device.type == "cuda":
             out, checks_host, extra = self._run_graph(scans, values,
                                                       keep_device)
         else:
+            if first:
+                _program_made()
             out, checks_host, extra = self._run_plain(scans, values)
         t2 = time.perf_counter()
         self._first = False
@@ -421,27 +490,15 @@ class CompiledQuery:
         on any host sync), then the capture of a second one."""
         stream = self.owner.stream
         self._graph = self._out = self._checks = None
+        _program_made()
         t0 = time.perf_counter()
         self._slots = tuple(torch.full((), v, dtype=phys_dtype(d),
                                        device=self.device)
                             for v, d in zip(values, self.param_dtypes))
         self._uploads = Uploads()
-        prev = torch.cuda.get_sync_debug_mode()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                with uploads_active(self._uploads):
-                    self._replay(scans, self._slots)
-            finally:
-                torch.cuda.set_sync_debug_mode(prev)
-        syncs = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
-                        for w in caught if "called a synchronizing"
-                        in str(w.message)})
-        if syncs:
-            # a capture would fail on them: name every one at once
-            raise RuntimeError(f"{self.label}: the replay waits on the "
-                               f"device at {syncs}")
+        with uploads_active(self._uploads):
+            _replay_without_syncs(self.label,
+                                  lambda: self._replay(scans, self._slots))
         self._uploads.reuse()
         stream.synchronize()
         # the first replay's intermediates go back to the device, so that
@@ -520,3 +577,258 @@ class CompiledQuery:
                 checks_host = hosts[-1].tolist()
         extra["graph_ms"] = e0.elapsed_time(e1)
         return out, checks_host, extra
+
+
+def _byte_layout(tensors: list) -> tuple:
+    """[(offset, dtype, shape)] of `tensors` laid end to end in one byte
+    buffer, each section starting at a multiple of 8 bytes (a byte view
+    of another dtype needs its section aligned), and the buffer's size."""
+    layout, off = [], 0
+    for t in tensors:
+        layout.append((off, t.dtype, tuple(t.shape)))
+        off += -(-t.numel() * t.element_size() // 8) * 8
+    return layout, max(off, 8)
+
+
+def _section(buf: torch.Tensor, off: int, dtype, shape) -> torch.Tensor:
+    """The tensor a byte buffer holds at `off` (a view)."""
+    n = int(np.prod(shape, dtype=np.int64))
+    size = torch.empty((), dtype=dtype).element_size()
+    return buf[off:off + n * size].view(dtype).view(shape)
+
+
+def batch_rungs(n: int) -> list:
+    """The capacities a batch of `n` rows runs as, largest first: each the
+    largest rung of the row ladder (``bucket(.., minimum=1)``) left within
+    the rows, so that they sum to `n`. A graph's rows run one after
+    another, so a padding row would cost a whole row's device time; with
+    a ladder of powers of two a program has at most log2(max_batch) + 1
+    batched graphs."""
+    out = []
+    while n > 0:
+        p = 1 << (n.bit_length() - 1)
+        mid = 3 * p // 2                # the ladder's midpoint above p
+        r = mid if mid <= n and bucket(mid, minimum=1) == mid else p
+        out.append(r)
+        n -= r
+    return out
+
+
+class BatchedQuery:
+    """One unit program replayed over a stacked batch of parameter vectors:
+    the query service's compatible-plan batching unit (the reference's
+    ``BatchedQuery``, ``lax.map`` over the stacked parameters).
+
+    K queries that parameterize to one plan fingerprint (same structure,
+    schedule and scans, other hoisted literal values) run as one dispatch
+    over ``cap`` rows, ``cap`` a rung of the row ladder
+    (``bucket(len(rows), minimum=1)``); a short batch pads with its last
+    row (TorchExecutor.run_param_batch sends none: it splits a batch into
+    full rungs, ``batch_rungs``). Each row replays the program's plan
+    (``CompiledQuery._replay``), so its result is the single program's,
+    bit for bit.
+
+    On CUDA one graph per (program, cap) holds the ``cap`` replays: row i
+    reads its parameters as the views ``slot[i]`` of ``(cap,)`` stacked
+    slots, which are sections of one device byte buffer that a run fills
+    with one copy from a pinned host buffer; the graph also lays every
+    row's outputs and checks into one byte buffer, fetched with one copy
+    and one synchronise. Row i's intermediates are freed inside the
+    capture, so row i+1 reuses their blocks: the graph's pool holds about
+    one row's working set and the ``cap`` rows' outputs. A warm run of a
+    known (program, cap) captures nothing (``captures`` counts). On the
+    CPU the rows replay in their plain form.
+
+    Checks come back per row: a cap decision holds when its maximum over
+    the rows is within the bucket of the planned value, an exact one when
+    every row equals it; any other raises ReplayMismatch and the caller
+    serves the batch serially."""
+
+    def __init__(self, cq: CompiledQuery, cap: int):
+        self.cq = cq
+        self.cap = cap
+        self.label = f"{cq.label}@batch{cap}"
+        self.captures = 0
+        self.captured_launches: dict = {}
+        self._first = True
+        self._uploads: Optional[Uploads] = None
+        self._graph = None
+        self._pbuf = None            # the stacked slots' device bytes
+        self._playout: list = []
+        self._slots: tuple = ()
+        self._obuf = None            # every row's outputs and checks
+        self._olayout: list = []
+        self._rows_out = None        # the captured rows' (out, checks)
+        self._ptrs = None
+        self._specs_at_capture = None
+
+    def run(self, scans: dict, rows: list,
+            stats: Optional[dict] = None) -> list:
+        """Run `rows` (parameter-value tuples, at most ``cap``) in one
+        dispatch; returns one host DTable per row. Raises ReplayMismatch
+        when a row's data drift past the recorded schedule."""
+        if not rows or len(rows) > self.cap:
+            raise ValueError(f"{len(rows)} rows for a batch of {self.cap}")
+        full = list(rows) + [rows[-1]] * (self.cap - len(rows))
+        for r in full:
+            if len(r) != len(self.cq.param_dtypes):
+                raise ArgSpecMismatch(
+                    f"parameter vector length mismatch: the program "
+                    f"expects {len(self.cq.param_dtypes)} parameter(s), a "
+                    f"row has {len(r)}")
+        scans = self.cq._args(scans, full[0])
+        first = self._first
+        FAULTS.fire("jax.execute")
+        t1 = time.perf_counter()
+        if self.cq.device.type == "cuda":
+            outs, checks, extra = self._run_graph(scans, full)
+        else:
+            if first:
+                _program_made()
+            outs, checks, extra = self._run_plain(scans, full)
+        t2 = time.perf_counter()
+        self._first = False
+        for j, (kind, planned) in enumerate(self.cq.decisions):
+            col = [int(c[j]) for c in checks]
+            if kind == "cap":
+                if max(col) > bucket(max(int(planned), 1)):
+                    raise ReplayMismatch(
+                        f"batched capacity overflow: {max(col)} > planned "
+                        f"{planned}")
+            elif any(a != int(planned) for a in col):
+                raise ReplayMismatch(f"batched exact decision drift: {col} "
+                                     f"!= {planned}")
+        if stats is not None:
+            stats.update(extra)
+            stats.update(mode="batched", batch=len(rows),
+                         device_ms=round((t2 - t1) * 1000, 3))
+        return outs[:len(rows)]
+
+    # -- the plain form (CPU) -------------------------------------------------
+    def _stacked(self, full: list) -> list:
+        """Each parameter's (cap,) values, each made as the single program
+        makes its slot (torch.full of the value in the slot's dtype)."""
+        return [torch.stack([torch.full((), r[j], dtype=phys_dtype(d))
+                             for r in full])
+                for j, d in enumerate(self.cq.param_dtypes)]
+
+    def _replay_rows(self, scans: dict, slots) -> list:
+        """The cap replays, row i over the views slot[i]; every row takes
+        the constants the first replay uploaded."""
+        u = self._uploads
+        out = []
+        for i in range(self.cap):
+            if i or u.idx is not None:
+                u.reuse()
+            with uploads_active(u):
+                out.append(self.cq._replay(
+                    scans, tuple(s[i] for s in slots)))
+            if u.idx is not None and u.idx != len(u.tensors):
+                raise NotJittable(f"row {i} made {u.idx} of its "
+                                  f"{len(u.tensors)} constant uploads")
+        return out
+
+    def _run_plain(self, scans: dict, full: list):
+        slots = [s.to(self.cq.device) for s in self._stacked(full)]
+        if self._uploads is None:
+            self._uploads = Uploads()
+        rows = self._replay_rows(scans, slots)
+        return ([out for out, _ in rows],
+                [checks.tolist() for _, checks in rows], {})
+
+    # -- the CUDA graph -------------------------------------------------------
+    def _capture(self, scans: dict, full: list) -> dict:
+        """Row 0 replayed once under the sync debug mode (constants,
+        scratch, one-time setup), then the cap rows captured in one
+        graph."""
+        cq = self.cq
+        stream = cq.owner.stream
+        self._graph = self._obuf = self._rows_out = None
+        _program_made()
+        t0 = time.perf_counter()
+        host = self._stacked(full)
+        self._playout, size = _byte_layout(host)
+        self._pbuf = torch.zeros(size, dtype=torch.uint8, device=cq.device)
+        self._slots = tuple(_section(self._pbuf, *lay)
+                            for lay in self._playout)
+        for slot, h in zip(self._slots, host):
+            slot.copy_(h)
+        self._uploads = Uploads()
+        with uploads_active(self._uploads):
+            _replay_without_syncs(
+                self.label,
+                lambda: cq._replay(scans, tuple(s[0] for s in self._slots)))
+        self._uploads.reuse()
+        stream.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(cq.device)
+        before = dict(_ck.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin(pool=cq.owner.graph_pool(),
+                            capture_error_mode="thread_local")
+        try:
+            rows = self._replay_rows(scans, self._slots)
+            flat = [t for out, checks in rows
+                    for t in _flat_out(out) + [checks]]
+            self._olayout, size = _byte_layout(flat)
+            obuf = torch.empty(size, dtype=torch.uint8, device=cq.device)
+            for lay, t in zip(self._olayout, flat):
+                if t.numel():
+                    _section(obuf, *lay).copy_(t)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass                  # the capture is invalid already
+            raise
+        graph.capture_end()
+        self._graph, self._obuf, self._rows_out = graph, obuf, rows
+        self.captures += 1
+        self.captured_launches = {k: _ck.LAUNCHES[k] - before[k]
+                                  for k in _ck.LAUNCHES}
+        self._ptrs = [t.data_ptr() for k in cq.scan_keys
+                      for t in _flat(scans[k])]
+        self._specs_at_capture = cq._specs(scans)
+        return {"capture_s": round(time.perf_counter() - t0, 4),
+                "pool_growth_bytes": torch.cuda.memory_reserved(cq.device)
+                - reserved0,
+                "captured_launches": dict(self.captured_launches)}
+
+    def _run_graph(self, scans: dict, full: list):
+        cq = self.cq
+        stream = cq.owner.stream
+        extra: dict = {}
+        if self._graph is not None:
+            specs = cq._specs(scans)
+            if specs != self._specs_at_capture:
+                raise ArgSpecMismatch(
+                    f"batched program argument mismatch: {specs} != "
+                    f"{self._specs_at_capture}")
+        ptrs = [t.data_ptr() for k in cq.scan_keys for t in _flat(scans[k])]
+        with torch.cuda.stream(stream):
+            if self._graph is None or ptrs != self._ptrs:
+                # a graph reads its scans where they were at capture
+                extra = self._capture(scans, full)
+            phost = torch.empty(self._pbuf.numel(), dtype=torch.uint8,
+                                pin_memory=True)
+            for lay, h in zip(self._playout, self._stacked(full)):
+                _section(phost, *lay).copy_(h)
+            self._pbuf.copy_(phost, non_blocking=True)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            self._graph.replay()
+            e1.record()
+            ohost = torch.empty(self._obuf.numel(), dtype=torch.uint8,
+                                pin_memory=True)
+            ohost.copy_(self._obuf, non_blocking=True)
+            stream.synchronize()        # the run's one host sync
+        views = [_section(ohost, *lay) for lay in self._olayout]
+        outs, checks, i = [], [], 0
+        for out, _ in self._rows_out:
+            n = len(_flat_out(out))
+            outs.append(_unflat_out(out, views[i:i + n]))
+            checks.append(views[i + n].tolist())
+            i += n + 1
+        extra["graph_ms"] = e0.elapsed_time(e1)
+        return outs, checks, extra

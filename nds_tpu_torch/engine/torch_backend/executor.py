@@ -27,8 +27,12 @@ needed (``widen_col`` at aggregate and window arguments, ``decode_col``
 where group keys are output), and join keys stay on codes
 (``_joinable_pair``).
 
-Not in this slice: batched programs over stacked parameters and mesh
-execution.
+The query service batches compatible queries (one plan fingerprint, other
+hoisted literals) through ``run_param_batch``: one program over stacked
+parameter slots (compiled.BatchedQuery), on the card one CUDA graph per
+(program, batch capacity).
+
+Not in this slice: mesh execution.
 """
 from __future__ import annotations
 
@@ -49,12 +53,15 @@ from ..plan import (AggregateNode, AggSpec, BCall, BCol, BExpr, DistinctNode,
                     VirtualScanNode, WindowFunc, WindowNode,
                     deparameterize_plan, iter_plan_nodes, parameterize_plan,
                     replace_plan_nodes)
+from ...obs import metrics as _metrics
+from ...obs.profile import DEVICE_MEM
+from ...resilience import FAULTS
 from ..streaming import MORSEL_TABLE
 from . import compiled as _cq
 from . import cuda_kernels as _ck
 from . import exprs, kernels
-from .compiled import (NOJIT_ERRORS, CompiledQuery, NotJittable, Recorder,
-                       ReplayMismatch)
+from .compiled import (NOJIT_ERRORS, BatchedQuery, CompiledQuery,
+                       NotJittable, Recorder, ReplayMismatch)
 from .device import (DCol, DTable, PackedTable, bucket, decode_col,
                      encode_against, lut_gather, phys_dtype, rank_key,
                      scan_layout, string_rank_maps, to_device, to_host,
@@ -117,6 +124,11 @@ class TorchExecutor:
         # the fingerprint whose shared schedule just mismatched here: the
         # record that follows must not adopt it again
         self._fp_block: Optional[str] = None
+        # batched programs of the query service: (fingerprint, batch
+        # capacity) -> BatchedQuery
+        self._batched: dict = {}
+        # resident entries as DEVICE_MEM leaves: key -> (leaf id, bytes)
+        self._mem_leaves: dict = {}
         self._stream = None
         self._pool = None
 
@@ -349,6 +361,7 @@ class TorchExecutor:
             # torch frees the buffers once the last reference is gone
             self._scan_cache.pop(old, None)
             self._resident.pop(old, None)
+        self._sync_mem()
 
     def _unit_label(self, key) -> str:
         """"<query>/<unit>" label of a unit (segments keep a short
@@ -392,7 +405,8 @@ class TorchExecutor:
                 self.last_stats["nojit_reason"] = ent["nojit_reason"]
                 return self._eager_ent(ent)
             except ReplayMismatch:
-                _cq.strike_shared_program(ent.get("fp"))
+                _cq.strike_shared_program(ent.get("fp"),
+                                          reason="ReplayMismatch")
                 self._fp_block = ent.get("fp")
                 self._plans.pop(key, None)
             else:
@@ -468,6 +482,7 @@ class TorchExecutor:
                     or sh.get("param_dtypes") != pdtypes:
                 return False
             sh["adoptions"] = sh.get("adoptions", 0) + 1
+            _metrics.PROGRAMS_ADOPTED.inc()
             ent = {"plan": sh["plan"], "decisions": list(sh["decisions"]),
                    "scan_keys": sh["scan_keys"], "params": pvalues,
                    "param_dtypes": pdtypes,
@@ -535,6 +550,93 @@ class TorchExecutor:
                 sh["cq"] = weakref.ref(ent["cq"])
                 sh["compiles"] = sh.get("compiles", 0) + 1
 
+    def evict_fp(self, fp: Optional[str]) -> int:
+        """Drop every local unit entry (and batched program) published
+        under shared fingerprint `fp`: the quarantine's follow-through,
+        after strike_shared_program evicted the shared entry, so that the
+        next sighting records and publishes afresh. Returns the entries
+        dropped. Called on the device lane, under the session's statement
+        lock."""
+        if fp is None:
+            return 0
+        gone = [k for k, ent in self._plans.items()
+                if isinstance(ent, dict) and ent.get("fp") == fp]
+        for k in gone:
+            del self._plans[k]
+        for k in [k for k in self._batched if k[0] == fp]:
+            del self._batched[k]
+        return len(gone)
+
+    # -- compatible-plan batching (the query service) -------------------------
+    def run_param_batch(self, fp: Optional[str], rows: list
+                        ) -> Optional[list]:
+        """Serve several compatible parameterized queries (one shared
+        fingerprint, other hoisted literal values: `rows`) through one
+        batched dispatch (BatchedQuery). Returns one host DTable per row,
+        or None when batching is unavailable (no live program published
+        under `fp` yet, a volatile or nojit entry, a plan without
+        parameters, jit_plans off): the caller then serves each query
+        through the unit lifecycle. Raises ReplayMismatch when a row's
+        data drift past the schedule.
+
+        A captured program reads its own executor's scans, so the batch
+        runs over this executor's program; where the published program is
+        another executor's, this one builds its own from the shared
+        schedule, as adoption does. The rows run as full rungs of the
+        capacity ladder (compiled.batch_rungs: five rows as a batched graph
+        of four and one of one), each (fp, capacity) its own BatchedQuery
+        over the one program; ``last_stats["graphs"]`` holds each rung's
+        figures."""
+        if fp is None or not self._jit_plans or not rows:
+            return None
+        with _cq._SHARED_LOCK:
+            sh = _cq._SHARED_PROGRAMS.get(fp)
+            if sh is None or sh.get("volatile") or sh.get("nojit") \
+                    or sh.get("cq") is None or sh["cq"]() is None \
+                    or not sh.get("param_dtypes"):
+                return None
+            own = _cq.shared_program(sh, self)
+            decisions = list(sh["decisions"])
+            plan, scan_keys = sh["plan"], sh["scan_keys"]
+            param_dtypes = tuple(sh["param_dtypes"])
+            decision_nodes = sh.get("decision_nodes")
+            scan_meta = dict(sh["scan_meta"])
+        if any(len(r) != len(param_dtypes) for r in rows):
+            return None
+        for k, v in scan_meta.items():
+            self._scan_meta.setdefault(k, v)
+        if own is not None and own.decisions != decisions:
+            own = None
+        scans = self._scans_for({"scan_keys": scan_keys})
+        self.fallback_nodes = []
+        caps = _cq.batch_rungs(len(rows))
+        outs, graphs, device_ms = [], [], 0.0
+        i = 0
+        for cap in caps:
+            bq = self._batched.get((fp, cap))
+            if bq is None or bq.cq.decisions != decisions:
+                # a program published again (a cap-merged schedule) makes
+                # the batched one stale: build it over the current schedule
+                if own is None:
+                    own = CompiledQuery(plan, decisions, scan_keys, self,
+                                        param_dtypes=param_dtypes,
+                                        label=self._unit_label(None),
+                                        decision_nodes=decision_nodes)
+                bq = BatchedQuery(own, cap)
+                self._batched[(fp, cap)] = bq
+            st: dict = {}
+            outs += bq.run(scans, rows[i:i + cap], stats=st)
+            i += cap
+            device_ms += st.pop("device_ms")
+            del st["mode"], st["batch"]
+            graphs.append(dict(cap=cap, **st))
+        self.last_stats = {"mode": "batched", "batch_rows": len(rows),
+                           "batch_caps": tuple(caps), "graphs": graphs,
+                           "device_ms": round(device_ms, 3)}
+        if self.device.type == "cuda":
+            self.last_stats["graph_ms"] = sum(g["graph_ms"] for g in graphs)
+        return outs
+
     # -- record / replay ------------------------------------------------------
     def record_plan(self, plan: PlanNode, params: tuple = ()):
         """Eager run that records the capacity schedule; returns (result,
@@ -549,6 +651,7 @@ class TorchExecutor:
         memo reset per plan, as CompiledQuery replays a list of plans.
         Returns (outs, decisions, scan_keys), scan_keys the union in
         first-touch order across the plans."""
+        FAULTS.fire("jax.execute")
         rec = Recorder("record")
         self._rec = rec
         self._touched_scans = {}
@@ -597,21 +700,40 @@ class TorchExecutor:
             del self._resident[k]
         self._resident.pop(key, None)
         self._resident[key] = self._dtable_bytes(t)
-        if self._scan_budget <= 0:
-            return
-        pinned = (pinned or set()) | self._pinned_segments
-        total = sum(self._resident.values())
-        for old in list(self._resident):
-            if total <= self._scan_budget:
-                break
-            if old == key or old in pinned:
-                continue
-            total -= self._resident.pop(old)
-            # the buffers free once the last user (a running unit's
-            # memo) drops them
-            self._scan_cache.pop(old, None)
-            if old in self._segment_lru:
-                self._segment_lru.remove(old)
+        if self._scan_budget > 0:
+            pinned = (pinned or set()) | self._pinned_segments
+            total = sum(self._resident.values())
+            for old in list(self._resident):
+                if total <= self._scan_budget:
+                    break
+                if old == key or old in pinned:
+                    continue
+                total -= self._resident.pop(old)
+                # the buffers free once the last user (a running unit's
+                # memo) drops them
+                self._scan_cache.pop(old, None)
+                if old in self._segment_lru:
+                    self._segment_lru.remove(old)
+        self._sync_mem()
+
+    def _sync_mem(self) -> None:
+        """Mirror the resident set into DEVICE_MEM, the accountant of the
+        statements' device-memory windows (ExecStats.mem_*)."""
+        gone, new = [], []
+        for k in [k for k in self._mem_leaves if k not in self._resident]:
+            gone.append(self._mem_leaves.pop(k))
+        for k, nbytes in self._resident.items():
+            t = self._scan_cache.get(k)
+            leaf = (id(t.alive), nbytes) if t is not None else None
+            if leaf is not None and self._mem_leaves.get(k) != leaf:
+                if k in self._mem_leaves:
+                    gone.append(self._mem_leaves[k])
+                self._mem_leaves[k] = leaf
+                new.append(leaf)
+        if gone:
+            DEVICE_MEM.free(gone)
+        if new:
+            DEVICE_MEM.add(new)
 
     def _scans_for(self, ent) -> dict:
         """Device-resident scan tables of a compiled run (uploaded again

@@ -20,6 +20,7 @@ import torch
 
 from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
 from torch_inputs import seg_gids, sort_keys
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -19,6 +19,7 @@ from nds_tpu.engine.jax_backend import device as rdevice
 from nds_tpu_torch.engine import arrow_bridge
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from torch_lanes_inputs import assert_roundtrip, tables, validity
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 CAP = 1024
 

@@ -28,6 +28,7 @@ from nds_tpu.engine import Session as RSession
 import nds_tpu_torch as nt
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 N_FACT, N_DIM = 50_000, 300
 CHUNK = 4_096

@@ -22,6 +22,7 @@ from nds_tpu_torch.engine import arrow_bridge
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from nds_tpu_torch.validate import table_mismatches
 from torch_lanes_inputs import assert_roundtrip, tables, validity
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 CAP = 1024
 

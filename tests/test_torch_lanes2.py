@@ -27,6 +27,7 @@ import nds_tpu_torch as nt
 from nds_tpu_torch.engine import arrow_bridge
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 N_FACT, N_DIM = 50_000, 300
 CHUNK = 4_096

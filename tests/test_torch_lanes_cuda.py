@@ -24,6 +24,7 @@ from nds_tpu_torch.engine.column import Column, Table
 from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

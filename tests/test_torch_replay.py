@@ -29,6 +29,7 @@ import nds_tpu_torch as nt
 from nds_tpu_torch import datagen, streams
 from nds_tpu_torch.engine.torch_backend import compiled
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 SEED = 3
 UNITS = dict(streams.template_units(stream=0, rngseed=SEED))
@@ -98,14 +99,6 @@ def check_modes(ref, port, sql: str) -> None:
         port.sql(sql, backend="torch")
         got.append(port.last_stats["mode"])
     assert got == want
-
-
-@pytest.fixture(autouse=True)
-def _isolate_shared_programs():
-    """Cases must not adopt each other's schedules."""
-    compiled.clear_shared_programs()
-    yield
-    compiled.clear_shared_programs()
 
 
 @pytest.fixture(scope="module")

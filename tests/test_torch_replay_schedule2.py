@@ -5,7 +5,7 @@ import pytest
 
 from test_torch_replay import UNITS, check_modes, check_schedule, \
     make_sessions
-from test_torch_replay import _isolate_shared_programs  # noqa: F401
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 
 @pytest.fixture(scope="module")

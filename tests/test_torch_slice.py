@@ -9,7 +9,8 @@ the XLA lowering is bit-identical to it) and its ``backend="numpy"``
 result: integer, date and decimal columns bit-identical, float columns to
 rtol 1e-9. Also here: the port imports neither jax nor nds_tpu (while
 it runs the star query in-core and streamed, a window query and a set
-operation), and it never runs on the CPU unless asked to.
+operation, and the query service's batched dispatch), and it never runs
+on the CPU unless asked to.
 """
 import os
 import subprocess
@@ -26,6 +27,7 @@ from nds_tpu.schema import get_schemas
 import nds_tpu_torch as nt
 from nds_tpu_torch import datagen, streams
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEED = 3
@@ -118,6 +120,18 @@ star, star_table = t.to_pylist(), t
 for mode in ("compile+run", "compiled"):
     assert s.sql(sys.argv[1]).to_pylist() == star
     assert s.last_stats["mode"] == mode and not s.last_fallbacks
+# the query service over the same session: a held pair of the star query
+# runs as one batched dispatch
+import time
+from nds_tpu_torch.service import QueryService
+with QueryService(s) as svc:
+    with svc.hold_dispatch():
+        tickets = [svc.submit(sys.argv[1]) for _ in range(2)]
+        while len(svc._ready) < 2:
+            time.sleep(0.01)
+    for ticket in tickets:
+        assert ticket.result(60).to_pylist() == star
+        assert ticket.stats.mode == "batched"
 # a window function and a set operation on the device path as well
 t = s.sql("SELECT fk, day, RANK() OVER (PARTITION BY fk ORDER BY qty) AS r, "
           "SUM(qty) OVER (PARTITION BY day) AS q FROM fact")

@@ -8,6 +8,7 @@ tests/test_torch_lanes1.py. See tests/torch_streaming_cases.py."""
 import pytest
 
 import torch_streaming_cases as C
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 
 @pytest.fixture(scope="module")

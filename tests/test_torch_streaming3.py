@@ -15,6 +15,7 @@ import pytest
 import torch_streaming_cases as C
 from nds_tpu_torch.engine import streaming
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 
 @pytest.fixture(scope="module")

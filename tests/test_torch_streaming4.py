@@ -28,6 +28,7 @@ import torch_streaming_cases as C
 from nds_tpu_torch.engine import streaming
 from nds_tpu_torch.engine.torch_backend import device as tdevice
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 
 @pytest.fixture(scope="module")

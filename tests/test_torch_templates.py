@@ -25,6 +25,7 @@ from nds_tpu.schema import get_schemas
 import nds_tpu_torch as nt
 from nds_tpu_torch import datagen, streams
 from nds_tpu_torch.validate import table_mismatches
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 SEED = 3
 UNITS = dict(streams.template_units(stream=0, rngseed=SEED))

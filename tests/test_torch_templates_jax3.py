@@ -6,6 +6,7 @@ import pytest
 
 from test_torch_templates import GAP_UNITS, check_unit
 from test_torch_templates import sessions  # noqa: F401 (module fixture)
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 
 @pytest.mark.parametrize("name", GAP_UNITS[2::3])

@@ -35,6 +35,7 @@ from nds_tpu_torch.engine.torch_backend import exprs as pexprs
 from nds_tpu_torch.engine.torch_backend import kernels as pk
 from nds_tpu_torch.validate import table_mismatches
 from test_torch_modules import _both_tables, _eq, _j, _spec, _t
+from torch_isolation import isolate_port_programs  # noqa: F401
 
 RTOL = 1e-9
 
