@@ -7,7 +7,8 @@
 Phases, one JSON line each:
 
 1. card and build: the card's name and power limit (nvidia-smi), and the
-   three CUDA kernels compiled from nds_tpu_torch/csrc/ with nvcc;
+   three CUDA kernels compiled from nds_tpu_torch/csrc/ with nvcc (the
+   native data generator built beside them);
 2. data: NDS tables generated at --sf by the native generator into a
    temporary directory and registered from CSV, decimals as exact int64;
 3. queries: NDS queries 3, 7, 9, 42, 55 and 96, and the queries of the
@@ -15,7 +16,9 @@ Phases, one JSON line each:
    67 and 87 (stream 0, template seed 3), through
    Session.sql(backend="torch") on the card, eager (``jit_plans=False``),
    strict (a node that falls back to the host fails the run), cold and
-   warm, held against the port's numpy executor on the same session.
+   warm, held against the port's numpy executor on the same session
+   (each query's numpy oracle runs in forked processes beside this phase
+   and the ones after; the results are checked after phase power).
    The launch counters are zeroed just before and read just after, and
    every kernel must have launched;
 3b. replay: the same queries on the same session through the compiled
@@ -57,6 +60,20 @@ Phases, one JSON line each:
    rows run, per (program, batch capacity) the capture's seconds and
    pool growth and the batched graph's ms, the busy share and peak
    memory. Counters zeroed just before, read just after;
+3b''. power: the same 14 queries as a user's power run takes them, after
+   the service's session is freed: stream 0 of the port's streams
+   (nds_tpu_torch.streams, seed SEED: the query phase's statements)
+   through nds_tpu_torch.power.run_query_stream over the SF10 CSV
+   tables, warmup 2 (every query recorded, every recorded unit compiled
+   ahead by precompile_parallel, then one compiled run), strict, with
+   Parquet outputs and JSON summaries, the shared programs cleared first
+   as in a fresh process. Every output equals the query phase's oracle
+   result (integers and decimals bit-identical, floats to rtol 1e-9),
+   every timed run replays a CUDA graph ("compiled"), the compile pass
+   compiles every unit. Reports the Power Test Time and each query's ms
+   from the time log, the statuses, the graphs' ms, the launches and the
+   top programs by device time (obs.device_time). Counters zeroed just
+   before, read just after;
 3c. transcode: store_sales, catalog_sales and inventory from the CSV to
    Parquet (pyarrow on the host) in the temporary directory, registered
    with register_parquet on a new session (their row counts then come
@@ -102,17 +119,22 @@ Phases, one JSON line each:
    launch and timed (``graph_ms``). ``--parent TREE`` (repeatable) also
    times the kernels of other checkouts on the same inputs, in turns;
 6. templates: every unit of the 99 NDS templates (103: four templates
-   hold two statements) at --templates_sf (0.5 by default, to keep the
-   smoke near 15 minutes beside the streamed phases), generated into the
-   same temporary directory, eager cold and warm, then through the
-   compiled lifecycle as in phase 3b, strict, held against the numpy
-   executor, with the launch counters zeroed just before and read just
-   after; the power run both ways (the eager warm walls, the replays'
-   medians).
+   hold two statements) at --templates_sf (0.5 by default) through the
+   drivers: stream files 0-2 from the port's streams; a cold power run of
+   stream 0 (warmup 0: every unit records) and a warm one (warmup 2: the
+   compile pass, then compiled runs), strict, each output Pass by the
+   port's validator and equal under the port's rules to a numpy power run
+   of stream 0 (forked in three workers beside them); then the throughput
+   runner over streams 1 and 2 and the 14 queries, strict, in process
+   mode (one ``python -m nds_tpu_torch.power`` a stream on the card) and
+   in service mode (every query through one QueryService), the outputs of
+   both held against numpy runs of the same streams, with both Power Test
+   Times and both elapsed times. Counters zeroed just before the cold
+   run, read just after the warm one.
 
 Then the deferred oracle checks of phase stream_default, the kernel table
-as one JSON line (a row's launches: phase query's and the streamed
-phases') and, last, the device line. Any
+as one JSON line (a row's launches: the phases query, service, power,
+templates and the streamed phases') and, last, the device line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
 """
 from __future__ import annotations
@@ -318,13 +340,19 @@ def same_bits(got, want) -> tuple[bool, float]:
 # ---------------------------------------------------------------------------
 
 def phase_card_build(ck) -> str:
+    import threading
+    from nds_tpu_torch import datagen
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
+    # the data generator (host C++) builds beside the kernels
+    gen = threading.Thread(target=datagen.build_generator)
+    gen.start()
     secs = ck.build()
+    gen.join()
     emit("build", seconds=time.perf_counter() - t0, per_source=secs,
          nvcc_flags=ck.NVCC_FLAGS)
     return smi
@@ -359,47 +387,59 @@ class OracleForks:
     """The numpy oracle of each unit in a process forked from this one
     as soon as the unit has run (so that it shares the host tables the
     unit loaded, and never touches the card), at most `workers` at a time,
-    while the caller goes on; results() waits for all of them."""
+    while the caller goes on. detach() hands the units not forked yet to
+    one process forked now, which runs them in `workers` processes of its
+    own, beside the phases after this one; results() waits for all of
+    them. Forks are made from this thread only, between statements."""
 
     def __init__(self, session, workers: int):
         self.session, self.workers = session, workers
         self.queued: list = []          # (index, sql) not forked yet
-        self.running: dict = {}         # connection -> (index, process)
+        self.running: dict = {}         # connection -> (indexes, process)
         self.done: dict = {}            # index -> (result, seconds)
+        self._n = 0
 
     def submit(self, sql: str) -> None:
-        self.queued.append((len(self.queued) + len(self.running)
-                            + len(self.done), sql))
+        self.queued.append((self._n, sql))
+        self._n += 1
         self._pump(block=False)
 
-    def _fork(self, i: int, sql: str) -> None:
+    def _fork(self, target, idx: list, *args) -> None:
         import multiprocessing
         ctx = multiprocessing.get_context("fork")
         recv, send = ctx.Pipe(duplex=False)
-        _FORKED["session"] = self.session
-        try:
-            proc = ctx.Process(target=_oracle_to, args=(sql, send))
-            proc.start()
-        finally:
-            _FORKED.clear()
+        # (forked, not pickled: the child inherits the session)
+        proc = ctx.Process(target=target, args=(self.session, *args, send))
+        proc.start()
         send.close()
-        self.running[recv] = (i, proc)
+        self.running[recv] = (idx, proc)
+
+    def detach(self) -> None:
+        """Fork one process for every unit not forked yet, and let the
+        session go."""
+        if self.queued:
+            self._fork(_oracle_many, [i for i, _ in self.queued],
+                       [sql for _, sql in self.queued], self.workers)
+            self.queued = []
+        self.session = None
 
     def _pump(self, block: bool) -> None:
         from multiprocessing.connection import wait
         while self.queued or (block and self.running):
             while self.queued and len(self.running) < self.workers:
-                self._fork(*self.queued.pop(0))
+                i, sql = self.queued.pop(0)
+                self._fork(_oracle_to, [i], sql)
             ready = wait(list(self.running), timeout=None if block else 0)
             if not ready and not block:
                 return
             for conn in ready:
-                i, proc = self.running.pop(conn)
+                idx, proc = self.running.pop(conn)
                 out = conn.recv()
                 proc.join()
                 if isinstance(out, str):
                     raise SystemExit(f"oracle failed: {out}")
-                self.done[i] = out
+                for i, o in zip(idx, out):
+                    self.done[i] = o
 
     def results(self) -> list:
         """[(the numpy executor's result, seconds)] in submission order."""
@@ -407,9 +447,23 @@ class OracleForks:
         return [self.done[i] for i in sorted(self.done)]
 
 
-def _oracle_to(sql: str, conn) -> None:
+def _oracle_to(session, sql: str, conn) -> None:
     try:
-        conn.send(_oracle(sql))
+        t0 = time.perf_counter()
+        want = session.sql(sql, backend="numpy")
+        conn.send([(want, time.perf_counter() - t0)])
+    except BaseException:
+        conn.send(traceback.format_exc())
+
+
+def _oracle_many(session, sqls: list, workers: int, conn) -> None:
+    """The oracle of each of `sqls`, in `workers` processes forked from
+    this one (a forked process of one thread)."""
+    import multiprocessing
+    try:
+        _FORKED["session"] = session
+        with multiprocessing.get_context("fork").Pool(workers) as pool:
+            conn.send(pool.map(_oracle, sqls, chunksize=1))
     except BaseException:
         conn.send(traceback.format_exc())
 
@@ -467,26 +521,27 @@ def _lifecycle_faults(name: str, stats: list) -> list:
 
 
 def run_units(session, ck, units: list, phase: str, recorder=None,
-              replay: bool = False, oracle=None,
-              results: dict | None = None) -> dict:
+              replay: bool = False, oracle=None, cold: bool = True,
+              results: dict | None = None):
     """Each (name, sql) of `units` through Session.sql(backend="torch"):
-    eager (jit_plans=False) cold (loads and uploads included) and warm, or
-    warm only when `oracle` holds the results (another phase ran them
-    cold); with
+    eager (jit_plans=False), cold (loads and uploads included) and warm
+    where `cold`, else warm only (another phase ran them cold); with
     `replay`, then through the compiled lifecycle: record, compile+run and
     REPLAYS graph replays. The launch counters are zeroed just before the
-    first run and read just after the last; then every result is held
-    against the numpy executor (`oracle`, [(result, seconds)] in unit
-    order, or oracle_results). One `phase` line per unit; fails after the
-    last line if any unit fell back to the host, disagreed, or strayed
-    from the lifecycle. Sets ``recorder.label`` to each unit's name while
-    it runs; ``results`` ({unit: result}) receives each unit's last
-    result. ``oracle`` may also be an OracleForks, given each unit's
-    statement as soon as the unit has run. Returns (counter totals, the
-    oracle results, the lines)."""
-    from nds_tpu_torch.validate import table_mismatches
+    first run and read just after the last; a unit that fell back to the
+    host or strayed from the lifecycle, or a kernel never launched (with
+    `replay`, never inside a capture), fails the phase at once. Sets
+    ``recorder.label`` to each unit's name while it runs; ``results``
+    ({unit: result}) receives each unit's last result. `oracle` is an
+    OracleForks, given each unit's statement as soon as the unit has run
+    where `cold`. Returns
+    (counter totals, the lines, check): check() holds every result
+    against the numpy executor's, waiting for the oracle where it still
+    runs, emits one `phase` line per unit, fails if any unit disagreed
+    and returns the oracle results ([(result, seconds)] in unit order).
+    The caller may call it later, so that the phases after this one run
+    beside the oracle."""
     runs, failed = [], []
-    cold = oracle is None or isinstance(oracle, OracleForks)
     ck.reset_launches()                 # the path starts here
     for name, sql in units:
         if recorder is not None:
@@ -505,31 +560,20 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
                                        for k in ck.LAUNCHES}))
         if results is not None:
             results[name] = (eager + compiled)[-1][0]
-        if isinstance(oracle, OracleForks):
+        if cold and isinstance(oracle, OracleForks):
             oracle.submit(sql)
     totals = dict(ck.LAUNCHES)          # read just after the path
     if recorder is not None:
         recorder.label = None
-    if isinstance(oracle, OracleForks):
-        oracle = oracle.results()
-    elif oracle is None:
-        oracle = oracle_results(session, [sql for _, sql in units])
     lines = []
-    for (name, _), (eager, compiled, launches), (want, oracle_s) in zip(
-            units, runs, oracle):
-        for i, (got, *_rest) in enumerate(eager + compiled):
-            bad = table_mismatches(got, want)
-            if bad:
-                failed.append(f"{name} (run {i}) disagrees with the numpy "
-                              f"oracle: {bad}")
-        line = {"unit": name, "warm_s": eager[-1][1], "oracle_s": oracle_s,
+    for (name, _), (eager, compiled, launches) in zip(units, runs):
+        line = {"unit": name, "warm_s": eager[-1][1],
                 "rows": eager[-1][0].num_rows, "launches": launches,
                 "peak_mem_gb": max(r[3] for r in eager + compiled)}
         if len(eager) == 2:
             line["cold_s"] = eager[0][1]
         if compiled:
             line.update(_replay_fields(compiled))
-        emit(phase, **line)
         lines.append(line)
     if failed:
         raise SystemExit(f"{phase}: " + "\n".join(failed))
@@ -543,7 +587,26 @@ def run_units(session, ck, units: list, phase: str, recorder=None,
         if missing:
             raise SystemExit(f"{phase}: kernels never launched inside a "
                              f"CUDA graph capture: {missing}")
-    return totals, oracle, lines
+
+    def check() -> list:
+        from nds_tpu_torch.validate import table_mismatches
+        t0 = time.perf_counter()
+        want_all = oracle.results()
+        waited_s = time.perf_counter() - t0
+        bad = []
+        for (name, _), (eager, compiled, _l), (want, oracle_s), line in \
+                zip(units, runs, want_all, lines):
+            for i, (got, *_rest) in enumerate(eager + compiled):
+                mm = table_mismatches(got, want)
+                if mm:
+                    bad.append(f"{name} (run {i}) disagrees with the numpy "
+                               f"oracle: {mm}")
+            emit(phase, **line, oracle_s=oracle_s)
+        emit(f"{phase}_oracle", waited_s=waited_s)
+        if bad:
+            raise SystemExit(f"{phase}: " + "\n".join(bad))
+        return want_all
+    return totals, lines, check
 
 
 def _replay_fields(compiled: list) -> dict:
@@ -585,28 +648,35 @@ def phase_queries(session, ck, recorder=None):
     """QUERIES at the session's scale, eager: the main path of the kernel
     phase's inputs. The numpy oracle of each query runs in a process
     forked as soon as the query has run (three at a time), beside the
-    later queries. Returns (counter totals, oracle results)."""
-    totals, oracle, _ = run_units(session, ck, query_units(), "query",
-                                  recorder, oracle=OracleForks(session, 3))
+    later queries and the phases after this one. Returns (counter totals,
+    the OracleForks, the check of the results against it)."""
+    oracle = OracleForks(session, 3)
+    totals, _, check = run_units(session, ck, query_units(), "query",
+                                 recorder, oracle=oracle)
+    oracle.detach()
     emit("launches", totals=totals)
-    return totals, oracle
+    return totals, oracle, check
 
 
 def phase_replay(session, ck, oracle) -> dict:
     """QUERIES through the compiled lifecycle on the query phase's session
-    (its scans resident), against its oracle results. Returns the counter
-    totals with the capture launches summed over the queries, each
-    query's replay wall (``walls``) and last result (``results``)."""
+    (its scans resident), against the query phase's oracle (an
+    OracleForks, perhaps still running: ``check`` holds the results
+    against it). Returns the counter totals with the capture launches
+    summed over the queries, each query's replay wall (``walls``) and
+    last result (``results``), and ``check``."""
     results: dict = {}
-    totals, _, lines = run_units(session, ck, query_units(), "replay",
-                                 replay=True, oracle=oracle, results=results)
+    totals, lines, check = run_units(session, ck, query_units(), "replay",
+                                     replay=True, oracle=oracle, cold=False,
+                                     results=results)
     captured = {k: sum(ln["captured_launches"].get(k, 0) for ln in lines)
                 for k in ck.LAUNCHES}
     emit("replay_launches", totals=totals, captured=captured,
          eager_warm_s=sum(ln["warm_s"] for ln in lines),
          replay_s=sum(ln["replay_s"] for ln in lines))
     return {"totals": totals, "captured": captured, "results": results,
-            "walls": {ln["unit"]: ln["replay_s"] for ln in lines}}
+            "walls": {ln["unit"]: ln["replay_s"] for ln in lines},
+            "check": check}
 
 
 # ---------------------------------------------------------------------------
@@ -833,13 +903,16 @@ def phase_service(session, ck, loop: bool = False) -> dict:
     twice more, with the loop form of batching (loop_param_batch) and
     then the batched graphs again. Every result must equal the serial
     result of its text bit for bit, and one result of each distinct text
-    the numpy oracle. Fails on a host fallback, a batch failure of another
-    class than BATCH_ERRORS_OK, no batched dispatch at SERVICE_CLIENTS
-    clients, a held batch not served as one batched dispatch over the
-    rungs batch_rungs gives, a second capture of one (program, batch
-    capacity), and a kernel never launched inside a batched capture.
+    the numpy oracle (forked at the end, beside the phases after this one:
+    ``check`` holds the results against it). Fails on a host fallback, a
+    batch failure of another class than BATCH_ERRORS_OK, no batched
+    dispatch at SERVICE_CLIENTS clients, a held batch not served as one
+    batched dispatch over the rungs batch_rungs gives, a second capture
+    of one (program, batch capacity), and a kernel never launched inside
+    a batched capture.
     Launch counters zeroed just before, read just after. Returns the
-    counter totals and the launches made inside batched captures."""
+    counter totals, the launches made inside batched captures and
+    ``check``."""
     import torch
     from nds_tpu_torch.engine.torch_backend import compiled
     from nds_tpu_torch.engine.torch_backend.executor import TorchExecutor
@@ -979,13 +1052,28 @@ def phase_service(session, ck, loop: bool = False) -> dict:
     if missing:
         failed.append(f"kernels never launched inside a batched capture: "
                       f"{missing}")
-    t0 = time.perf_counter()
+    # the oracle of each distinct text, in workers forked now, beside the
+    # phases after this one; ``check`` holds the results against it
     texts = sorted(firsts)
-    oracle = oracle_results(session, texts)
-    for sql, (want, _s) in zip(texts, oracle):
-        mism = table_mismatches(firsts[sql], want)
-        if mism:
-            failed.append(f"disagrees with the numpy oracle: {sql}: {mism}")
+    pending = oracle_async(session, texts, 3)
+    t_oracle = time.perf_counter()
+
+    def check() -> None:
+        t0 = time.perf_counter()
+        pool, res = pending
+        oracle = res.get()
+        pool.close()
+        pool.join()
+        bad = []
+        for sql, (want, _s) in zip(texts, oracle):
+            mism = table_mismatches(firsts[sql], want)
+            if mism:
+                bad.append(f"disagrees with the numpy oracle: {sql}: {mism}")
+        emit("service_oracle", texts=len(texts),
+             waited_s=time.perf_counter() - t0,
+             oracle_s=time.perf_counter() - t_oracle)
+        if bad:
+            raise SystemExit("service: " + "\n".join(bad[:20]))
     line = {
         "queries": SERVICE_QUERIES, "clients": SERVICE_CLIENTS,
         "distinct_texts": len(texts), "warm_s": warm_s,
@@ -996,12 +1084,12 @@ def phase_service(session, ck, loop: bool = False) -> dict:
         "service": {tag: _run_fields(*runs[tag]) for tag in runs},
         "batch_errors": errs, "programs": programs,
         "held_peaks": held_peaks, "peak_mem_gb": peak_gb,
-        "launches": totals, "batched_captured_launches": captured,
-        "oracle_s": time.perf_counter() - t0}
+        "launches": totals, "batched_captured_launches": captured}
     emit("service", **line)
     if failed:
+        pending[0].terminate()
         raise SystemExit("service: " + "\n".join(failed[:20]))
-    return {"totals": totals, "captured": captured}
+    return {"totals": totals, "captured": captured, "check": check}
 
 
 # ---------------------------------------------------------------------------
@@ -1025,8 +1113,8 @@ INCORE_DEFAULT = ("query39_part1", "query39_part2")
 #: job and run in-core
 LOWERED_MIN_ROWS = 10_000_000
 INCORE_LOWERED = ("query12", "query38", "query87")
-#: warm runs of each unit after its cold run: three in stream_default,
-#: one in stream_lowered (its 14 queries replay in phase replay already)
+#: warm runs of each unit after its cold run: three in stream_default, one
+#: in stream_lowered (its 14 queries replay in phase replay already)
 WARM_PASSES = 3
 WARM_PASSES_LOWERED = 1
 
@@ -1099,16 +1187,21 @@ def oracle_async(session, sqls: list, workers: int):
     return pool, pool.map_async(_oracle, sqls, chunksize=1)
 
 
+def _median(vals):
+    vals = list(vals)
+    return statistics.median(vals) if vals else None
+
+
 def _streamed_fields(runs: list) -> dict:
     """One streamed unit's figures: the cold run and the median of the
-    warm ones."""
+    warm ones (None where there is no warm run)."""
     def med(key):
-        vals = [r[2][key] for r in runs[1:] if r[2].get(key) is not None]
-        return statistics.median(vals) if vals else None
+        return _median(r[2][key] for r in runs[1:]
+                       if r[2].get(key) is not None)
     cold = runs[0][2]
     gbps = [r[2]["bytes_uploaded"] / r[2]["upload_ms"] / 1e6
             for r in runs[1:] if r[2].get("upload_ms")]
-    return {"warm_s": statistics.median(r[1] for r in runs[1:]),
+    return {"warm_s": _median(r[1] for r in runs[1:]),
             "morsels": cold["morsels"],
             "morsels_per_table": cold["morsels_per_table"],
             "jobs": cold["jobs"], "scan_passes": cold["scan_passes"],
@@ -1116,7 +1209,7 @@ def _streamed_fields(runs: list) -> dict:
             "bytes_uploaded": cold["bytes_uploaded"],
             "upload_gb_s": statistics.median(gbps) if gbps else None,
             "stage_hidden_share": med("stage_hidden_share"),
-            "host_decode_ms": statistics.median(
+            "host_decode_ms": _median(
                 sum(r[2]["host_decode_ms"].values()) for r in runs[1:]),
             "stage_ms": med("stage_ms"), "finalize_ms": med("finalize_ms"),
             "busy_share": med("busy_share"), "graph_ms": med("graph_ms"),
@@ -1225,7 +1318,7 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
         store[name] = (want, oracle_s)
         line = {"unit": name, "mode": rr[0][2].get("mode"),
                 "cold_s": rr[0][1],
-                "warm_s": statistics.median(r[1] for r in rr[1:]),
+                "warm_s": _median(r[1] for r in rr[1:]),
                 "warm_walls_s": [r[1] for r in rr[1:]],
                 "incore_replay_s": (incore_walls or {}).get(name),
                 "rows": rr[-1][0].num_rows, "oracle_s": oracle_s,
@@ -1416,22 +1509,304 @@ def phase_spare_slot(recorder) -> None:
              lambda: first_row_one_slot(gid, mask))]))
 
 
-def phase_templates(nt, ck, sf: float, tmp: str, device: str = "cuda"):
-    """Every unit of every template at `sf`, on a session of its own."""
-    from nds_tpu_torch import streams
-    from nds_tpu_torch.engine.torch_backend import compiled
-    session = phase_data(nt, sf, tmp, device, name="templates_data")
-    # another data set: no schedule recorded on the other adopts here
-    compiled.clear_shared_programs()
-    units = streams.template_units(stream=0, rngseed=SEED)
+# ---------------------------------------------------------------------------
+# the benchmark drivers: power and throughput runs
+# ---------------------------------------------------------------------------
+
+#: the power phase's untimed runs a query: record (all queries, then every
+#: recorded unit compiled ahead), then one compiled run
+POWER_WARMUP = 2
+#: the throughput runs' streams (stream 0 is the power run's)
+THROUGHPUT_STREAMS = (1, 2)
+#: forked numpy power runs of the templates phase's stream 0, at a time
+NUMPY_CHUNKS = 3
+
+
+def _as_written(table):
+    """A result as the power runner writes it: columns renamed for
+    Parquet (power.ensure_valid_column_names)."""
+    from nds_tpu_torch.engine.column import Table
+    from nds_tpu_torch.power import ensure_valid_column_names
+    return Table(ensure_valid_column_names(list(table.names)),
+                 list(table.columns))
+
+
+def _read_output(prefix: str, name: str):
+    """A unit's Parquet output as a port Table (decimals exact)."""
+    import pyarrow.parquet as pq
+    from nds_tpu_torch.engine import arrow_bridge
+    return arrow_bridge.from_arrow(pq.read_table(
+        os.path.join(prefix, name, "part-0.parquet")), True)
+
+
+def power_run(data: str, stream_file: str, root: str, tag: str,
+              **kw) -> dict:
+    """One power run (nds_tpu_torch.power.run_query_stream) over the CSV
+    tables, with outputs and JSON summaries under root/<tag>_*; returns its
+    wall, the Power Test Time and each unit's ms from its time log, each
+    unit's status and execStats modes from its summary, and what its
+    compile pass returned."""
+    import csv as _csv
+    from nds_tpu_torch import power
+    out = os.path.join(root, f"{tag}_out")
+    js = os.path.join(root, f"{tag}_json")
+    log = os.path.join(root, f"{tag}_time.csv")
     t0 = time.perf_counter()
-    totals, _, lines = run_units(session, ck, units, "template",
-                                 replay=True)
-    emit("templates", sf=sf, units=len(units),
-         seconds=time.perf_counter() - t0, launches=totals,
-         power_eager_s=sum(ln["warm_s"] for ln in lines),
-         power_replay_s=sum(ln["replay_s"] for ln in lines),
-         nojit={ln["unit"]: ln["nojit"] for ln in lines if ln["nojit"]})
+    compile_report: dict = {}
+    power.run_query_stream(data, stream_file, log, input_format="csv",
+                           output_prefix=out, json_summary_folder=js,
+                           compile_report=compile_report, **kw)
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        rows = [r for r in _csv.reader(f) if r]
+    summaries = {}
+    for fn in os.listdir(js):
+        with open(os.path.join(js, fn)) as f:
+            summaries[fn.split("-")[1]] = json.load(f)
+    return {
+        "wall_s": wall, "out": out,
+        "power_test_ms": int(rows[-1][3]),
+        "query_ms": {r[0]: int(r[3]) for r in rows[2:-2]},
+        "status": {n: s["queryStatus"][-1] for n, s in summaries.items()},
+        "modes": {n: [e.get("mode") for e in s.get("execStats", [])]
+                  for n, s in summaries.items()},
+        "nojit": {n: e["nojit_reason"] for n, s in summaries.items()
+                  for e in s.get("execStats", []) if e.get("nojit_reason")},
+        "graph_ms": {n: s["execStats"][-1].get("graph_ms")
+                     for n, s in summaries.items() if s.get("execStats")},
+        "precompile": list(compile_report.values()),
+    }
+
+
+def _run_faults(run: dict, tag: str, mode: str) -> list:
+    """A power run's faults: a unit not Completed, or its timed run not in
+    `mode` (a unit left eager must have a reason the reference shares)."""
+    faults = [f"{tag}: {n} {s}" for n, s in run["status"].items()
+              if s != "Completed"]
+    for n, modes in run["modes"].items():
+        reason = run["nojit"].get(n)
+        if reason is not None:
+            if not any(ok in reason for ok in NOJIT_SHARED):
+                faults.append(f"{tag}: {n} nojit for a reason the "
+                              f"reference does not share: {reason}")
+        elif modes != [mode]:
+            faults.append(f"{tag}: {n} timed run in mode {modes}, not "
+                          f"{mode}")
+    return faults
+
+
+def phase_power(ck, data: str, oracle, tmp: str,
+                device: str = "cuda") -> dict:
+    """QUERIES as a user's power run takes them: stream 0 of the port's
+    streams (seed SEED) over the SF10 CSV tables through
+    nds_tpu_torch.power.run_query_stream, warmup 2, strict, in a process
+    whose shared programs are cleared (as a fresh process's). Every
+    output equals the query phase's oracle result (`oracle`, the
+    OracleForks, waited for after the run), every timed run replays a
+    CUDA graph ("compiled") and the compile pass compiles every recorded
+    unit. Counters zeroed just before, read just after. Returns the
+    counter totals."""
+    from nds_tpu_torch import power, streams
+    from nds_tpu_torch.engine.torch_backend import compiled
+    from nds_tpu_torch.obs import device_time
+    from nds_tpu_torch.validate import table_mismatches
+    root = os.path.join(tmp, "power")
+    [stream0] = streams.generate_query_streams(
+        os.path.join(root, "streams"), 1, SEED)
+    with open(stream0) as f:
+        stream_sql = power.gen_sql_from_stream(f.read())
+    units = query_units()
+    failed = [f"{n}: the stream's statement is not the query phase's"
+              for n, sql in units
+              if power.strip_sql_comments(sql).strip().rstrip(";")
+              != stream_sql[n]]
+    compiled.clear_shared_programs()
+    device_time.PROGRAMS.reset()
+    ck.reset_launches()                 # the path starts here
+    run = power_run(data, stream0, root, "power", warmup=POWER_WARMUP,
+                    strict=True, sub_queries=[n for n, _ in units],
+                    device=device)
+    totals = dict(ck.LAUNCHES)          # read just after the path
+    failed += _run_faults(run, "power", "compiled")
+    if not run["precompile"] or set(run["precompile"]) != {"compiled"}:
+        failed.append(f"power: the compile pass gave {run['precompile']}")
+    for (name, _), (want, _) in zip(units, oracle.results()):
+        bad = table_mismatches(_read_output(run["out"], name),
+                               _as_written(want))
+        if bad:
+            failed.append(f"power: {name} disagrees with the oracle: {bad}")
+    top = device_time.PROGRAMS.table(top=10)
+    emit("power", units=len(units), wall_s=run["wall_s"],
+         power_test_ms=run["power_test_ms"], query_ms=run["query_ms"],
+         status=run["status"], graph_ms=run["graph_ms"],
+         precompile={"units": len(run["precompile"]),
+                     "compiled": run["precompile"].count("compiled")},
+         launches=totals, top_programs=top,
+         device_time_ms=device_time.PROGRAMS.total_ms())
+    print(device_time.format_table(top), flush=True)
+    if failed:
+        raise SystemExit("power: " + "\n".join(failed))
+    missing = [k for k, v in totals.items() if v == 0]
+    if missing and device == "cuda":    # (the CPU launches no kernel)
+        raise SystemExit(f"power: kernels never launched: {missing}")
+    return {"totals": totals}
+
+
+def _numpy_power(data: str, stream_file: str, out: str, log: str,
+                 sub) -> None:
+    """A numpy power run in a forked worker (never touches the card)."""
+    from nds_tpu_torch import power
+    with open(os.devnull, "w") as null:
+        sys.stdout = null
+        power.run_query_stream(data, stream_file, log, input_format="csv",
+                               backend="numpy", output_prefix=out,
+                               sub_queries=sub, device="cpu")
+
+
+def _numpy_throughput(data: str, stream_dir: str, logs: str, out: str,
+                      sub) -> None:
+    from nds_tpu_torch import throughput
+    with open(os.devnull, "w") as null:
+        sys.stdout = null
+        throughput.run_throughput(data, stream_dir, list(THROUGHPUT_STREAMS),
+                                  logs, input_format="csv",
+                                  output_prefix=out, sub_queries=sub,
+                                  backend="numpy", mode="thread",
+                                  device="cpu")
+
+
+def _outputs_faults(want: str, got: str, names: list, tag: str) -> list:
+    """`got`'s outputs against `want`'s: Pass by the port's validator
+    (query65 is NotAttempted there) and equal under the port's rules."""
+    from nds_tpu_torch import validate
+    faults = []
+    status = validate.iterate_queries(want, got, names, use_floats=False)
+    for n, st in status.items():
+        if st == "Fail" or (st != "Pass" and not n.startswith("query65")):
+            faults.append(f"{tag}: {n} {st}")
+        bad = validate.table_mismatches(_read_output(got, n),
+                                        _read_output(want, n))
+        if bad:
+            faults.append(f"{tag}: {n} disagrees with numpy: {bad}")
+    return faults
+
+
+def phase_templates(nt, ck, sf: float, tmp: str, device: str = "cuda"):
+    """Every unit of every template at `sf` through the drivers: stream
+    files 0-2 from the port's streams (seed SEED); a cold power run of
+    stream 0 (warmup 0: every unit records) and a warm one (warmup 2: the
+    compile pass, then compiled runs), strict, their outputs held against
+    a numpy power run of stream 0 (forked, beside them); then throughput
+    over streams 1 and 2 and QUERIES, strict (a stream whose statements
+    fell back to the host fails), in process mode (one power process a
+    stream) and in service mode (every query through one QueryService),
+    the outputs of both held against numpy runs of the same streams.
+    Counters zeroed just before the cold run, read just after the warm
+    one. Returns the counter totals."""
+    import multiprocessing
+    from nds_tpu_torch import datagen, power, streams, throughput
+    from nds_tpu_torch.engine.torch_backend import compiled
+    data = os.path.join(tmp, "templates_data")
+    root = os.path.join(tmp, "templates")
+    t0 = time.perf_counter()
+    datagen.generate(data, sf, parallel=len(os.sched_getaffinity(0)))
+    emit("templates_data", sf=sf, generate_s=time.perf_counter() - t0,
+         csv_bytes=sum(os.path.getsize(os.path.join(r, f))
+                       for r, _, fs in os.walk(data) for f in fs))
+    sdir = os.path.join(root, "streams")
+    paths = streams.generate_query_streams(sdir, 3, SEED)
+    with open(paths[0]) as f:
+        names = list(power.gen_sql_from_stream(f.read()))
+    subset = [f"query{q}" for q in QUERIES]
+    # the numpy runs, forked now, beside the device runs
+    ctx = multiprocessing.get_context("fork")
+    bases = sorted({n.split("_part")[0] for n in names})
+    np_out, np_tp = os.path.join(root, "numpy_out"), \
+        os.path.join(root, "numpy_tp_out")
+    forks = [ctx.Process(target=_numpy_power, args=(
+        data, paths[0], np_out, os.path.join(root, f"numpy_{i}.csv"),
+        bases[i::NUMPY_CHUNKS])) for i in range(NUMPY_CHUNKS)]
+    forks.append(ctx.Process(target=_numpy_throughput, args=(
+        data, sdir, os.path.join(root, "numpy_tp_logs"), np_tp, subset)))
+    t_np = time.perf_counter()
+    for p in forks:
+        p.start()
+    compiled.clear_shared_programs()    # another data set
+    ck.reset_launches()                 # the path starts here
+    t1 = time.perf_counter()
+    cold = power_run(data, paths[0], root, "cold", warmup=0, strict=True,
+                     device=device)
+    warm = power_run(data, paths[0], root, "warm", warmup=POWER_WARMUP,
+                     strict=True, device=device)
+    totals = dict(ck.LAUNCHES)          # read just after the path
+    power_s = time.perf_counter() - t1
+    failed = _run_faults(cold, "cold", "record") + \
+        _run_faults(warm, "warm", "compiled")
+    if sorted(cold["status"]) != sorted(names):
+        failed.append(f"cold: {len(cold['status'])} units, not "
+                      f"{len(names)}")
+    # throughput over streams 1 and 2: process mode, then service mode
+    tps = {}
+    props = None
+    if device == "cpu":
+        props = os.path.join(root, "cpu.properties")
+        with open(props, "w") as f:
+            f.write("nds.tpu.device=cpu\n")
+    for mode in ("process", "service"):
+        t2 = time.perf_counter()
+        logs = os.path.join(root, f"tp_{mode}_logs")
+        elapsed = throughput.run_throughput(
+            data, sdir, list(THROUGHPUT_STREAMS), logs, input_format="csv",
+            output_prefix=os.path.join(root, f"tp_{mode}_out"),
+            sub_queries=subset, mode=mode, strict=True,
+            **({"property_file": props} if mode == "process"
+               else {"device": device}))
+        runs = {}
+        for s in THROUGHPUT_STREAMS:
+            with open(throughput.stream_log_path(logs, s)) as f:
+                rows = [r for r in f.read().splitlines() if r]
+            runs[s] = [r.split(",")[0] for r in rows[2:-2]]
+            if sorted(n.split("_part")[0] for n in runs[s]) != \
+                    sorted(n.split("_part")[0] for n in names
+                           if n.split("_part")[0] in subset):
+                failed.append(f"throughput {mode}: stream {s} ran "
+                              f"{runs[s]}")
+        tps[mode] = {"elapsed_s": elapsed,
+                     "wall_s": time.perf_counter() - t2,
+                     "units": {s: len(r) for s, r in runs.items()}}
+    for p in forks:
+        p.join()
+        if p.exitcode != 0:
+            failed.append(f"a numpy run failed (exit {p.exitcode})")
+    numpy_s = time.perf_counter() - t_np
+    if not failed:
+        for run, tag in ((cold, "cold"), (warm, "warm")):
+            failed += _outputs_faults(np_out, run["out"], names, tag)
+        for s in THROUGHPUT_STREAMS:
+            with open(paths[s]) as f:
+                tp_names = [n for n in power.gen_sql_from_stream(f.read())
+                            if n.split("_part")[0] in subset]
+            for mode in tps:
+                failed += _outputs_faults(
+                    os.path.join(np_tp, f"stream_{s}"),
+                    os.path.join(root, f"tp_{mode}_out", f"stream_{s}"),
+                    tp_names, f"throughput {mode} stream {s}")
+    emit("templates", sf=sf, units=len(names), seconds=time.perf_counter()
+         - t0, power_s=power_s, numpy_s=numpy_s, launches=totals,
+         cold_power_test_ms=cold["power_test_ms"],
+         warm_power_test_ms=warm["power_test_ms"],
+         cold_wall_s=cold["wall_s"], warm_wall_s=warm["wall_s"],
+         warm_precompile={"units": len(warm["precompile"]),
+                          "compiled": warm["precompile"].count("compiled")},
+         cold_query_ms=cold["query_ms"], warm_query_ms=warm["query_ms"],
+         throughput=tps,
+         nojit=dict(sorted({**cold["nojit"], **warm["nojit"]}.items())))
+    if failed:
+        raise SystemExit("templates: " + "\n".join(failed))
+    missing = [k for k, v in totals.items() if v == 0]
+    if missing and device == "cuda":    # (the CPU launches no kernel)
+        raise SystemExit(f"templates: kernels never launched: {missing}")
+    return {"totals": totals}
 
 
 def dev_us(e) -> float:
@@ -1874,13 +2249,23 @@ def main() -> int:
                       lambda gid, mask: int(gid.shape[0]),
                       lambda gid, mask: recorder.label
                       if recorder.label in spare_labels else None)
-        launches, oracle = phase_queries(session, ck, recorder)
+        launches, oracle, query_check = phase_queries(session, ck,
+                                                      recorder)
         if args.profile:
             phase_profile(session)
         recorder.unwrap()
         replay = phase_replay(session, ck, oracle)
         service = phase_service(session, ck, loop=args.service_loop)
         del session             # its tables, host and device, are done
+        gc.collect()
+        torch.cuda.empty_cache()
+        power = phase_power(ck, os.path.join(tmp, "data"), oracle, tmp)
+        # the query and replay phases' results against the oracle, which
+        # ran beside them and the phases since
+        query_check()
+        replay.pop("check")()
+        service.pop("check")()
+        oracle = oracle.results()
         gc.collect()
         torch.cuda.empty_cache()
         scale = args.sf / 10
@@ -1902,20 +2287,25 @@ def main() -> int:
             for k, v in recorder.regimes().items()})
         rows = phase_kernels(ck, recorder, launches, replay, streamed,
                              service, parents=parents)
-        phase_templates(nt, ck, args.templates_sf, tmp)
+        templates = phase_templates(nt, ck, args.templates_sf, tmp)
         finish_streamed(streamed)
         for row in rows:
             row["stream_captured_launches"] = {
                 ph: st["captured"][row["name"]]
                 for ph, st in streamed.items()}
+            row["power_launches"] = power["totals"][row["name"]]
+            row["templates_launches"] = templates["totals"][row["name"]]
+            row["launches"] += row["power_launches"] + \
+                row["templates_launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     # each row's "launches" counts the calls into the kernel's launch
-    # entry in the main paths: the eager query phase, the streamed phases
-    # and the service phase (apart in "query_launches", "stream_launches"
-    # and "service_launches");
+    # entry in the main paths: the eager query phase, the streamed phases,
+    # the service phase and the drivers' phases power and templates (apart
+    # in "query_launches", "stream_launches", "service_launches",
+    # "power_launches" and "templates_launches");
     # "replay_launches" the replay phase's, and "captured_launches" those
     # of them made while a CUDA graph was captured: a graph's replays run
     # the kernel without calling its wrapper, so they add to no count

@@ -4,7 +4,13 @@ Counterpart of ``nds_tpu/config.py``'s ``EngineConfig``; field names and
 defaults follow it, the streamed path's too, except where the card differs
 (``decimal_physical`` defaults to exact int64 decimals, ``gpu_kernels``
 replaces ``pallas_ops`` with all three kernels on by default, and
-``scan_budget_gb`` is sized to the card's 80 GB).
+``scan_budget_gb`` is sized to the card's 80 GB). The drivers' fields
+(timeouts, attempts, fault points), ``from_property_file``,
+``load_properties`` and ``apply_decimal`` are copied from it.
+
+The reference's ``maybe_enable_compile_cache`` (JAX's persistent compile
+cache) has no counterpart: the CUDA kernels build once into
+``nds_tpu_torch/_build/`` and a CUDA graph is captured per process.
 """
 from __future__ import annotations
 
@@ -88,3 +94,78 @@ class EngineConfig:
     # columns of up to 33.5M padded rows) must stay resident between
     # queries, while half the card stays free for intermediates and graphs
     scan_budget_gb: float = 40.0
+    # -- resilience (nds_tpu_torch/resilience.py) --------------------------
+    # per-query wall-clock budget in seconds; an overrun abandons the query
+    # and records Failed (DeadlineExceeded). 0 = unbounded.
+    query_timeout_s: float = 0.0
+    # timed attempts per query: transient failures retry with exponential
+    # backoff before the query records Failed. 1 = no retry.
+    query_attempts: int = 1
+    # base backoff between retry attempts (doubles per attempt, capped)
+    retry_backoff_s: float = 0.1
+    # per-stream wall-clock budget for the throughput supervisor; a stream
+    # past it is killed (process mode) or abandoned (thread mode). 0 = none.
+    stream_timeout_s: float = 0.0
+    # spawn attempts per throughput stream (crash/timeout => restart with
+    # backoff until exhausted). 1 = no restart.
+    stream_attempts: int = 1
+    # armed fault-injection specs, e.g. ("jax.execute:hang:5#1",
+    # "arrow.read:raise@0.1") - see resilience.FaultSpec for the grammar;
+    # property file: nds.tpu.fault_points=point:action,point:action
+    fault_points: tuple = ()
+
+    @staticmethod
+    def from_property_file(path: Optional[str]) -> "EngineConfig":
+        """A config from a java-style property file: ``nds.tpu.<field>``
+        sets the field of that name (``nds.tpu.device=cpu``,
+        ``nds.tpu.gpu_kernels=sort,gather``); other keys are ignored."""
+        cfg = EngineConfig()
+        for k, v in load_properties(path).items():
+            key = k.replace("nds.tpu.", "").replace(".", "_")
+            if not hasattr(cfg, key):
+                continue
+            cur = getattr(cfg, key)
+            if key == "device":
+                setattr(cfg, key, v or None)
+            elif isinstance(cur, bool):
+                setattr(cfg, key, v.lower() in ("1", "true", "yes"))
+            elif isinstance(cur, int):
+                setattr(cfg, key, int(v))
+            elif isinstance(cur, float):
+                setattr(cfg, key, float(v))
+            elif isinstance(cur, str):
+                setattr(cfg, key, v)
+            elif isinstance(cur, tuple):
+                parts = [x.strip() for x in v.split(",") if x.strip()]
+                try:
+                    setattr(cfg, key, tuple(int(x) for x in parts))
+                except ValueError:
+                    setattr(cfg, key, tuple(parts))
+        return cfg
+
+
+def load_properties(path: Optional[str]) -> dict:
+    """Parse a java-style key=value property file (reference
+    nds_power.py:306-312)."""
+    props: dict = {}
+    if not path:
+        return props
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            name, _, value = line.partition("=")
+            props[name.strip()] = value.strip()
+    return props
+
+
+def apply_decimal(config: EngineConfig, decimal: Optional[str]) -> None:
+    """Apply a runner-level decimal override: "i64" exact scaled int64
+    (the port's default), "f64" doubles. Torch has int64 natively, so
+    there is no 64-bit switch to turn on."""
+    if decimal:
+        if decimal not in ("f64", "i64"):
+            raise ValueError(f"unknown decimal physical type {decimal!r} "
+                             "(expected f64 or i64)")
+        config.decimal_physical = decimal

@@ -1,18 +1,26 @@
 """NDS data for the port: drives the repository's native generator.
 
 Counterpart of the local path of ``nds_tpu/datagen.py``
-(``generate_data_local``): one generator process per chunk, then one
-directory per table. The generator is the C++ program in
-``native/datagen/``; it is compiled with the host C++ compiler into
-``nds_tpu_torch/_build/`` at first use (a few seconds), so the port needs
-no prebuilt binary. ``setup_tables`` registers the generated tables with a
-port Session, as ``nds_tpu/power.py``'s ``setup_tables`` does for CSV.
+(``generate_data_local`` and its CLI's ``local`` mode, with ``--range``
+and ``--overwrite``): one generator process per chunk, then one directory
+per table. The generator is the C++ program in ``native/datagen/``; it is
+compiled with the host C++ compiler into ``nds_tpu_torch/_build/`` at
+first use (a few seconds), so the port needs no prebuilt binary.
+``setup_tables`` registers the generated tables with a port Session.
+
+    python -m nds_tpu_torch.datagen local DATA_DIR --scale 1 [--parallel N]
+        [--range FIRST,LAST] [--overwrite]
+
+Not ported yet: the ``hosts`` mode (ssh fan-out) and ``--update`` refresh
+sets (Data Maintenance's input), both ROADMAP A.6.
 """
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 import subprocess
+import sys
 
 from .schema import get_schemas
 
@@ -41,33 +49,68 @@ def build_generator() -> str:
     return out
 
 
-def generate(data_dir: str, scale: float, parallel: int) -> None:
+def check_build() -> str:
+    """The native generator, built if needed (the reference's check_build
+    looks for its prebuilt binary)."""
+    return build_generator()
+
+
+def valid_range(r: str, parallel: int) -> tuple[int, int]:
+    """Parse --range 'first,last' (1-based chunk indexes, reference
+    check.py:88-123)."""
+    try:
+        first, last = (int(x) for x in r.split(","))
+    except ValueError:
+        raise ValueError(f"bad range {r!r}: expected 'first,last'")
+    if not (1 <= first <= last <= parallel):
+        raise ValueError(f"range {r!r} outside 1..{parallel}")
+    return first, last
+
+
+def generate(data_dir: str, scale: float, parallel: int,
+             chunk_range: tuple[int, int] | None = None,
+             overwrite: bool = False) -> None:
     """Generate every source table at `scale` into data_dir/<table>/, with
-    `parallel` generator processes (data_dir must not exist or be empty)."""
+    one generator process per chunk. A whole run needs data_dir empty or
+    missing (``overwrite`` replaces it); a ``chunk_range`` run (first,
+    last) adds its chunks to a shared data_dir and never wipes it."""
     binary = build_generator()
-    if os.path.exists(data_dir) and os.listdir(data_dir):
-        raise FileExistsError(f"{data_dir} is not empty")
-    work = os.path.join(data_dir, "_raw_")
+    first, last = chunk_range if chunk_range else (1, parallel)
+    if chunk_range is None:
+        if os.path.exists(data_dir) and os.listdir(data_dir):
+            if not overwrite:
+                raise FileExistsError(
+                    f"{data_dir} is not empty; pass overwrite to replace")
+            shutil.rmtree(data_dir)
+        work = os.path.join(data_dir, "_raw_")
+    else:
+        # a private work dir: range runs may share data_dir concurrently
+        work = os.path.join(data_dir, f"_raw_{first}_{last}_")
     os.makedirs(work, exist_ok=True)
-    procs = [subprocess.Popen([binary, "-scale", str(scale), "-dir", work,
-                               "-parallel", str(parallel), "-child",
-                               str(child)])
-             for child in range(1, parallel + 1)]
-    failed = [i + 1 for i, p in enumerate(procs) if p.wait() != 0]
+    procs = [(child, subprocess.Popen(
+        [binary, "-scale", str(scale), "-dir", work, "-parallel",
+         str(parallel), "-child", str(child)]))
+        for child in range(first, last + 1)]
+    failed = [c for c, p in procs if p.wait() != 0]
     if failed:
         raise RuntimeError(f"generator chunks failed: {failed}")
     for table in SOURCE_TABLES:
         tdir = os.path.join(data_dir, table)
         os.makedirs(tdir, exist_ok=True)
-        for child in range(1, parallel + 1):
+        for child in range(first, last + 1):
             name = f"{table}_{child}_{parallel}.dat" if parallel > 1 \
                 else f"{table}.dat"
             src = os.path.join(work, name)
             if os.path.exists(src) and os.path.getsize(src) > 0:
                 os.rename(src, os.path.join(tdir, name))
-        if not os.listdir(tdir):
+        # a range run legitimately leaves small tables to other ranges
+        if chunk_range is None and not os.listdir(tdir):
             raise RuntimeError(f"no output produced for table {table}")
     shutil.rmtree(work, ignore_errors=True)
+    if chunk_range is not None and not any(
+            os.listdir(os.path.join(data_dir, t)) for t in SOURCE_TABLES):
+        raise RuntimeError(
+            f"range {first},{last} produced no output for any table")
 
 
 def setup_tables(session, data_dir: str, use_decimal: bool = True) -> list:
@@ -83,3 +126,38 @@ def setup_tables(session, data_dir: str, use_decimal: bool = True) -> list:
                                  sch.arrow_schema(use_decimal=use_decimal))
             names.append(name)
     return names
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(
+        prog="nds_tpu_torch.datagen",
+        description="Generate NDS benchmark data with the native generator")
+    p.add_argument("mode", choices=["local", "hosts"],
+                   help="local: fork processes; hosts: ssh fan-out (not "
+                   "ported)")
+    p.add_argument("data_dir")
+    p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--parallel", type=int, default=os.cpu_count() or 1)
+    p.add_argument("--range", dest="range_", default=None,
+                   help="chunk subrange 'first,last' for incremental runs")
+    p.add_argument("--update", type=int, default=0,
+                   help="refresh (maintenance) set K (not ported)")
+    p.add_argument("--overwrite", action="store_true")
+    p.add_argument("--hosts", default="",
+                   help="comma-separated host list for hosts mode")
+    a = p.parse_args(argv)
+    if a.mode == "hosts":
+        raise NotImplementedError(
+            "datagen's hosts mode (ssh fan-out) is not ported yet: "
+            "ROADMAP A.6")
+    if a.update:
+        raise NotImplementedError(
+            "refresh sets (--update, Data Maintenance's input) are not "
+            "ported yet: ROADMAP A.6")
+    rng = valid_range(a.range_, a.parallel) if a.range_ else None
+    generate(a.data_dir, a.scale, a.parallel, rng, overwrite=a.overwrite)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,26 +55,31 @@ def _chunked_to_array(arr: pa.ChunkedArray | pa.Array) -> pa.Array:
 def _decimal_to_scaled_i64(arr: pa.Array) -> np.ndarray:
     """Exact decimal128(p,s) -> value*10^s as int64 (no float round-trip)."""
     t = arr.type
-    # fast path only when every scaled value provably fits int64
-    # (10^18 < 2^63): the safe=False cast below would wrap silently
+    if pa.types.is_decimal128(t):
+        # a decimal128's storage IS value*10^s as a 128-bit integer: where
+        # every one fits int64 (its high word is its low word's sign; at
+        # precision <= 18 always, 10^18 < 2^63), the low words are the
+        # answer, read in one pass (null slots hold anything: zeroed)
+        words = np.frombuffer(arr.buffers()[1], dtype=np.int64)[
+            2 * arr.offset:2 * (arr.offset + len(arr))].reshape(-1, 2)
+        lo = words[:, 0]
+        valid = ~np.asarray(arr.is_null()) if arr.null_count else None
+        if t.precision <= 18:
+            fits = True
+        else:
+            fits = words[:, 1] == (lo >> 63)
+            if valid is not None:
+                fits |= ~valid
+            fits = bool(fits.all())
+        if fits:
+            return lo.copy() if valid is None else np.where(valid, lo, 0)
     if t.precision <= 18:
+        # (a decimal256): every scaled value fits int64, so the safe=False
+        # cast cannot wrap
         mul = pa.scalar(10 ** t.scale, pa.decimal128(t.scale + 1, 0))
         ints = pc.cast(pc.multiply(arr, mul), pa.int64(), safe=False)
         ints = pc.fill_null(ints, 0)
         return ints.to_numpy(zero_copy_only=False)
-    if pa.types.is_decimal128(t):
-        # a decimal128's storage IS value*10^s as a 128-bit integer: where
-        # every one fits int64 (its high word is its low word's sign), the
-        # low words are the answer
-        words = np.frombuffer(arr.buffers()[1], dtype=np.int64)[
-            2 * arr.offset:2 * (arr.offset + len(arr))].reshape(-1, 2)
-        lo, hi = words[:, 0], words[:, 1]
-        valid = ~np.asarray(arr.is_null()) if arr.null_count else None
-        fits = hi == (lo >> 63)
-        if valid is not None:
-            fits |= ~valid
-        if bool(fits.all()):
-            return lo.copy() if valid is None else np.where(valid, lo, 0)
     out = np.zeros(len(arr), dtype=np.int64)     # precision edge: exact loop
     for i, d in enumerate(arr.to_pylist()):
         if d is not None:

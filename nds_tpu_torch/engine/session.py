@@ -96,6 +96,9 @@ class Session:
         self._enc_stats_sources: dict[str, Callable] = {}
         self._col_stats: dict[str, dict] = {}
         self._enc_stats: dict[str, dict] = {}
+        # tables whose loads parse them whole (CSV): load_table serves
+        # every projection from the one whole parse
+        self._parse_whole: set = set()
         # streamed-path state per query: rewritten plans, scan groups, the
         # stream executor, compiled morsel programs and slots (None: the
         # query has no streaming job); valid for one _stream_config_key
@@ -130,6 +133,11 @@ class Session:
         # being preempted in turn
         self._preempt_hook = None
         self._in_preempt = False
+        if self.config.fault_points:
+            # arm the process-wide fault registry from the config or a
+            # property file (nds.tpu.fault_points=point:action,...)
+            from ..resilience import FAULTS
+            FAULTS.configure(self.config.fault_points)
 
     def _dec_as_int(self) -> bool:
         return self.config.decimal_physical == "i64"
@@ -147,9 +155,14 @@ class Session:
     def _registered(self, name: str, names, dtypes, est_rows: int,
                     unique_cols, loader: Callable, batches: Callable,
                     stats: Optional[Callable] = None,
-                    enc_stats: Optional[Callable] = None) -> None:
+                    enc_stats: Optional[Callable] = None,
+                    parse_whole: bool = False) -> None:
         with self._lock:
             self._schemas[name] = (list(names), list(dtypes))
+            if parse_whole:
+                self._parse_whole.add(name)
+            else:
+                self._parse_whole.discard(name)
             self._set_unique_cols(name, names, unique_cols)
             self._est_rows[name] = est_rows
             self._loaders[name] = loader
@@ -252,9 +265,12 @@ class Session:
         def load(columns=None, dec=dec):
             return arrow_bridge.from_arrow(
                 pa.concat_tables(list(batches(columns))), dec)
+        # a CSV read tokenizes every field of every file, whichever
+        # columns it converts: the table parses once, whole, and each
+        # projection is a subset of it (load_table)
         self._registered(name, names, dtypes,
                          est_rows if est_rows is not None else 10000,
-                         unique_cols, load, batches)
+                         unique_cols, load, batches, parse_whole=True)
 
     def column_stats(self, name: str) -> dict:
         """{column: (lo, hi)} value ranges of a registered table in engine
@@ -336,12 +352,15 @@ class Session:
 
     def load_table(self, name: str, columns=None) -> Table:
         """Load a table, optionally projected to `columns`; cached per
-        projection, and a cached full table serves any subset.
+        projection, and a cached full table serves any subset (a table
+        registered from CSV always loads whole first).
         Thread-safe: the projection cache fills under the state lock."""
         with self._lock:
             key = (name, tuple(columns) if columns is not None else None)
             if key in self._cache:
                 return self._cache[key]
+            if columns is not None and name in self._parse_whole:
+                self.load_table(name)
             if columns is not None and (name, None) in self._cache:
                 full = self._cache[(name, None)]
                 idx = {n: i for i, n in enumerate(full.names)}
@@ -375,7 +394,9 @@ class Session:
 
     def _executor(self):
         """The session-held device executor: its device-resident scans
-        persist across queries until a table (re-)registers."""
+        persist across queries until a table (re-)registers. (The
+        reference's ``_jax_executor``: the power runner's compile pass
+        calls its ``precompile_parallel``.)"""
         if self._exec is None or self._exec_gen != self._generation:
             self._exec = self._new_executor(self.config.jit_plans)
             self._exec_gen = self._generation
@@ -423,9 +444,21 @@ class Session:
         """A deadline just abandoned a worker thread mid-statement (python
         threads cannot be killed): the zombie may still hold this
         session's locks, so fresh ones go in and the next statement runs
-        at once. The zombie may still be using the card and the executor
-        then, as in the reference: bounded by its hang, its caller has
-        already failed the query."""
+        at once. Unlike the reference, the zombie does not race the next
+        statement on the card: its executors are abandoned (it stops at
+        its next plan node, program run or capture, and a capture it has
+        begun ends before it stops) and the next statement runs on fresh
+        ones, with a stream and a graph pool of their own. The host
+        tables stay cached; device-resident scans upload again."""
+        # (no lock: the zombie may hold them)
+        if self._exec is not None:
+            self._exec.abandon()
+        self._exec = None
+        for sent in list(self._stream_cache.values()):
+            if sent:
+                sent["exec"].abandon()
+        self._stream_cache = {}
+        self._stream_refused = {}
         self._sql_lock = threading.RLock()
         self._lock = threading.RLock()
 

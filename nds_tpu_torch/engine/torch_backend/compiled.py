@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ...obs import metrics as _metrics
+from ...obs.device_time import PROGRAMS
 from ...obs.flight import FLIGHT
 from ...resilience import FAULTS
 from ..plan import MaterializedNode, iter_plan_nodes
@@ -66,8 +67,29 @@ class ArgSpecMismatch(ValueError):
     message names each argument that drifted."""
 
 
+class StatementAbandoned(RuntimeError):
+    """The executor running this statement was abandoned (a deadline gave
+    the statement up, Session.abandon_inflight): the worker stops at its
+    next program run or plan node instead of racing the next statement
+    on the card."""
+
+
 #: errors that mark a unit "nojit": it runs eager from then on
 NOJIT_ERRORS = (NotJittable, NotImplementedError)
+
+#: one capture at a time in a process: a capture empties the allocator's
+#: cache first, which must not run beside another thread's capture (one
+#: Session per stream thread shares the card in the throughput's thread
+#: mode)
+_CAPTURE_LOCK = threading.Lock()
+
+
+def check_abandoned(owner) -> None:
+    """Raise StatementAbandoned when `owner` (an executor) was abandoned."""
+    if owner is not None and owner.abandoned:
+        raise StatementAbandoned(
+            "statement abandoned (its deadline passed); stopping before "
+            "the next device work")
 
 
 class Recorder:
@@ -439,6 +461,7 @@ class CompiledQuery:
         scans = self._args(scans, values)
         first = self._first
         FAULTS.fire("jax.execute")
+        check_abandoned(self.owner)
         t1 = time.perf_counter()
         if self.device.type == "cuda":
             out, checks_host, extra = self._run_graph(scans, values,
@@ -450,6 +473,9 @@ class CompiledQuery:
         t2 = time.perf_counter()
         self._first = False
         verify_schedule(self.decisions, checks_host)
+        # the graph's own time on the card, the run's wall on the CPU
+        PROGRAMS.record_run(self.label, round(extra.get(
+            "graph_ms", (t2 - t1) * 1000), 3), first=first)
         if stats is not None:
             stats.update(self._prepared)
             self._prepared = {}
@@ -488,9 +514,14 @@ class CompiledQuery:
         """A first replay on the executor's stream (uploads the constants,
         sizes kernel scratch, runs each kernel's one-time setup, and fails
         on any host sync), then the capture of a second one."""
+        _program_made()
+        check_abandoned(self.owner)
+        with _CAPTURE_LOCK:
+            return self._capture_locked(scans, values)
+
+    def _capture_locked(self, scans: dict, values: tuple) -> dict:
         stream = self.owner.stream
         self._graph = self._out = self._checks = None
-        _program_made()
         t0 = time.perf_counter()
         self._slots = tuple(torch.full((), v, dtype=phys_dtype(d),
                                        device=self.device)
@@ -679,6 +710,7 @@ class BatchedQuery:
         scans = self.cq._args(scans, full[0])
         first = self._first
         FAULTS.fire("jax.execute")
+        check_abandoned(self.cq.owner)
         t1 = time.perf_counter()
         if self.cq.device.type == "cuda":
             outs, checks, extra = self._run_graph(scans, full)
@@ -698,6 +730,9 @@ class BatchedQuery:
             elif any(a != int(planned) for a in col):
                 raise ReplayMismatch(f"batched exact decision drift: {col} "
                                      f"!= {planned}")
+        # the graph's own time on the card, the run's wall on the CPU
+        PROGRAMS.record_run(self.label, round(extra.get(
+            "graph_ms", (t2 - t1) * 1000), 3), first=first)
         if stats is not None:
             stats.update(extra)
             stats.update(mode="batched", batch=len(rows),
@@ -741,10 +776,15 @@ class BatchedQuery:
         """Row 0 replayed once under the sync debug mode (constants,
         scratch, one-time setup), then the cap rows captured in one
         graph."""
+        _program_made()
+        check_abandoned(self.cq.owner)
+        with _CAPTURE_LOCK:
+            return self._capture_locked(scans, full)
+
+    def _capture_locked(self, scans: dict, full: list) -> dict:
         cq = self.cq
         stream = cq.owner.stream
         self._graph = self._obuf = self._rows_out = None
-        _program_made()
         t0 = time.perf_counter()
         host = self._stacked(full)
         self._playout, size = _byte_layout(host)

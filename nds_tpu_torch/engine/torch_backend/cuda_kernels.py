@@ -376,6 +376,11 @@ def seg_reduce_multi_plain(operands: list, gid: torch.Tensor,
 #: uses zero and leaves them zero (its last block clears them), so they are
 #: kept per stream, where calls run in order, and no call clears them
 _SEG_SCRATCH: dict = {}
+#: the words a grown buffer replaced: a CUDA graph captured over them
+#: replays on them later, so they stay allocated (freed, another tensor
+#: would take them and the graph would read and write its data). Growth
+#: doubles, so they hold at most as many words as the buffers in use
+_SEG_SCRATCH_RETIRED: list = []
 
 
 def _seg_scratch(dev: torch.device, words: int) -> torch.Tensor:
@@ -387,6 +392,9 @@ def _seg_scratch(dev: torch.device, words: int) -> torch.Tensor:
         # first (uncaptured) pass on the capture stream sizes them
         _require(not torch.cuda.is_current_stream_capturing(),
                  "seg_reduce_multi scratch must be sized before a capture")
+        if buf is not None:
+            _SEG_SCRATCH_RETIRED.append(buf)
+            words = max(words, 2 * buf.numel())
         buf = _SEG_SCRATCH[key] = torch.zeros(words, dtype=torch.int64,
                                               device=dev)
     return buf

@@ -61,7 +61,8 @@ from . import compiled as _cq
 from . import cuda_kernels as _ck
 from . import exprs, kernels
 from .compiled import (NOJIT_ERRORS, BatchedQuery, CompiledQuery,
-                       NotJittable, Recorder, ReplayMismatch)
+                       NotJittable, Recorder, ReplayMismatch,
+                       check_abandoned)
 from .device import (DCol, DTable, PackedTable, bucket, decode_col,
                      encode_against, lut_gather, phys_dtype, rank_key,
                      scan_layout, string_rank_maps, to_device, to_host,
@@ -131,6 +132,15 @@ class TorchExecutor:
         self._mem_leaves: dict = {}
         self._stream = None
         self._pool = None
+        # set by abandon(): a deadline gave up the statement running here
+        self.abandoned = False
+
+    def abandon(self) -> None:
+        """A deadline gave up the statement running on this executor (its
+        worker thread cannot be killed): the worker stops at its next plan
+        node, program run or capture (StatementAbandoned), and the session
+        runs later statements on a fresh executor."""
+        self.abandoned = True
 
     # -- the CUDA stream and graph pool ---------------------------------------
     @property
@@ -225,27 +235,102 @@ class TorchExecutor:
         """Second sighting of a multi-unit query: compile every unit that
         has a schedule but no program before any of them runs (the
         reference's precompile_parallel call; serial, and only for the
-        units this run executes). A unit that cannot replay is marked
-        nojit; one whose scans are gone is left to its own run."""
+        units this run executes)."""
         for k in unit_keys:
-            ent = self._plans.get(k)
-            if ent is None or ent["cq"] is not None or ent["nojit"]:
-                continue
-            cq = CompiledQuery(ent["plan"], ent["decisions"],
-                               ent["scan_keys"], self,
-                               param_dtypes=ent.get("param_dtypes", ()),
-                               label=ent.get("label", self._unit_label(k)),
-                               decision_nodes=ent.get("decision_nodes"))
+            self._prepare_unit(k)
+
+    def _prepare_unit(self, k) -> Optional[str]:
+        """Compile one recorded unit ahead of its next run: "compiled";
+        "nojit" (it cannot replay); "skipped: ReplayMismatch" (its scans
+        are gone: its own run compiles it); None: nothing to compile."""
+        ent = self._plans.get(k)
+        if not isinstance(ent, dict) or "decisions" not in ent or \
+                ent["cq"] is not None or ent["nojit"]:
+            return None
+        cq = CompiledQuery(ent["plan"], ent["decisions"], ent["scan_keys"],
+                           self, param_dtypes=ent.get("param_dtypes", ()),
+                           label=ent.get("label", self._unit_label(k)),
+                           decision_nodes=ent.get("decision_nodes"))
+        try:
+            cq.prepare(self._scans_for(ent), ent.get("params", ()))
+        except NOJIT_ERRORS as e:
+            ent["nojit"] = True
+            ent["nojit_reason"] = f"{type(e).__name__}: {e}"
+            return "nojit"
+        except ReplayMismatch:
+            return "skipped: ReplayMismatch"
+        ent["cq"] = cq
+        self._publish_cq(ent)
+        return "compiled"
+
+    def precompile_parallel(self) -> dict:
+        """Compile every recorded, uncompiled unit entry ahead of its next
+        run (the reference's cold-start pass after a stream's record-all
+        pass, ``JaxExecutor.precompile_parallel``).
+
+        On the card a unit's compile is its first replay and its CUDA
+        graph's capture (CompiledQuery.prepare), which runs the unit on
+        the device and needs its inputs: a multi-unit query's units go in
+        dependency order, and a segment whose output has left the cache
+        (the segment LRU, the scan budget) runs again, compiled, so that
+        the units after it find it. The entries go serially, on this
+        executor's stream: the reference compiles on several threads to
+        overlap the round trips of a remote compile service, and several
+        captures at once on one card buy nothing.
+
+        Returns {key: "compiled"|"nojit"|"skipped: <error>"}; a unit that
+        fails otherwise is skipped, as in the reference, and its own next
+        run compiles it."""
+        results: dict = {}
+
+        def one(k, run=None):
             try:
-                cq.prepare(self._scans_for(ent), ent.get("params", ()))
-            except NOJIT_ERRORS as e:
-                ent["nojit"] = True
-                ent["nojit_reason"] = f"{type(e).__name__}: {e}"
-                continue
-            except ReplayMismatch:
-                continue
-            ent["cq"] = cq
-            self._publish_cq(ent)
+                status = run() if run is not None else self._prepare_unit(k)
+            except Exception as e:
+                status = f"skipped: {type(e).__name__}"
+            if status is not None:
+                results[k] = status
+
+        with self.on_stream():
+            for mkey, meta in list(self._plans.items()):
+                if not (isinstance(mkey, tuple) and mkey[0] == "segmeta"
+                        and len(meta["units"]) > 1):
+                    continue
+                qkey, units = mkey[1], meta["units"]
+                self._pinned_segments = {sk for sk, _ in units
+                                         if sk is not None}
+                try:
+                    for sk, uplan in units:
+                        ukey = (qkey, "root" if sk is None else sk)
+                        results.setdefault(ukey, None)
+                        if sk is not None and sk not in self._scan_cache:
+                            one(ukey, lambda: self._rerun_segment(
+                                ukey, sk, uplan))
+                        else:
+                            one(ukey)
+                finally:
+                    self._pinned_segments = set()
+            for k in list(self._plans):
+                if k not in results:
+                    one(k)
+        return {k: v for k, v in results.items() if v is not None}
+
+    def _rerun_segment(self, ukey, seg_key: str, uplan) -> Optional[str]:
+        """A segment unit whose output has left the cache: run it through
+        its lifecycle (a recorded one compiles at this, its second
+        sighting) and bind its output for the units after it."""
+        ent = self._plans.get(ukey)
+        todo = isinstance(ent, dict) and ent["cq"] is None and \
+            not ent["nojit"]
+        self.last_stats = {}
+        self._bind_segment(seg_key, self._run_unit(ukey, uplan,
+                                                   keep_device=True))
+        if not todo:
+            return None
+        ent = self._plans.get(ukey)
+        if ent is None or ent["nojit"]:
+            return "nojit"
+        return "compiled" if ent["cq"] is not None else "skipped: record"
 
     # -- segmentation ---------------------------------------------------------
     def _segment_plan(self, plan: PlanNode) -> list:
@@ -404,7 +489,10 @@ class TorchExecutor:
                 self.last_stats["mode"] = "eager"
                 self.last_stats["nojit_reason"] = ent["nojit_reason"]
                 return self._eager_ent(ent)
-            except ReplayMismatch:
+            except ReplayMismatch as e:
+                # the schedule no longer fits: record again (the reason
+                # stays in the stats)
+                self.last_stats["replay_mismatch"] = str(e)[:300]
                 _cq.strike_shared_program(ent.get("fp"),
                                           reason="ReplayMismatch")
                 self._fp_block = ent.get("fp")
@@ -652,6 +740,7 @@ class TorchExecutor:
         Returns (outs, decisions, scan_keys), scan_keys the union in
         first-touch order across the plans."""
         FAULTS.fire("jax.execute")
+        check_abandoned(self)
         rec = Recorder("record")
         self._rec = rec
         self._touched_scans = {}
@@ -953,6 +1042,8 @@ class TorchExecutor:
 
     # -- node dispatch -------------------------------------------------------
     def _run(self, node: PlanNode) -> DTable:
+        if self.abandoned:
+            check_abandoned(self)
         if isinstance(node, MaterializedNode):
             return to_device(node.table, self.device)
         if isinstance(node, VirtualScanNode):

@@ -4,6 +4,8 @@
   rewrite passes and the query service's ticket spans);
 - :mod:`.metrics`   — the process-wide counter/gauge/histogram registry;
 - :mod:`.flight`    — the bounded ring of query-lifecycle events;
+- :mod:`.device_time` — per-program device time (``PROGRAMS``): each
+  compiled unit's runs under its label, ranked;
 - :mod:`.stats`     — the typed ``ExecStats`` record;
 - :mod:`.query_log` — the durable query log (one flat row a statement);
 - :mod:`.profile`   — the device-memory watermark accountant
@@ -14,6 +16,7 @@ from .trace import TRACER, span                                  # noqa: F401
 from .metrics import METRICS                                     # noqa: F401
 from .flight import FLIGHT                                       # noqa: F401
 from .query_log import QUERY_LOG                                 # noqa: F401
+from .device_time import PROGRAMS                                # noqa: F401
 from .stats import ExecStats                                     # noqa: F401
 from .profile import DEVICE_MEM                                  # noqa: F401
 from .log import get_logger                                      # noqa: F401

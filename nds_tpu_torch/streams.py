@@ -1,16 +1,25 @@
 # Copied from nds_tpu/streams.py: the template loader and its parameter DSL
-# (load_template, instantiate and their helpers), available_templates and
-# the two-statement templates' split (SPECIAL_TEMPLATES,
-# split_special_query), verbatim; template_units is the port's own.
-# nds_tpu_torch/templates/ is a verbatim copy of nds_tpu/templates/, all 99
-# templates.
-"""Query-template instantiation: ``queryN.tpl`` + a seeded parameter DSL."""
+# (load_template, instantiate and their helpers), available_templates, the
+# stream writer (_permutation, generate_query_streams) and its CLI, and the
+# two-statement templates' split (SPECIAL_TEMPLATES, split_special_query),
+# verbatim; template_units is the port's own. nds_tpu_torch/templates/ is a
+# verbatim copy of nds_tpu/templates/, all 99 templates.
+"""Query-template instantiation: ``queryN.tpl`` + a seeded parameter DSL.
+
+    python -m nds_tpu_torch.streams OUTPUT_DIR --rngseed SEED [--streams N]
+        [--template K]
+
+writes query_0.sql .. query_{N-1}.sql, the streams a power run
+(``nds_tpu_torch.power``) and a throughput run read.
+"""
 from __future__ import annotations
 
+import argparse
 import hashlib
 import os
 import re
 import struct
+import sys
 
 TEMPLATE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                             "templates")
@@ -148,6 +157,39 @@ def available_templates(template_dir: str = TEMPLATE_DIR) -> list[int]:
     return sorted(out)
 
 
+def _permutation(numbers: list[int], stream: int, rngseed: int) -> list[int]:
+    """Deterministic per-stream ordering; stream 0 runs in template order
+    (the reference gets permutations from dsqgen's internal tables)."""
+    if stream == 0:
+        return list(numbers)
+    order = list(numbers)
+    r = _rng(rngseed, 0, "permutation", stream)
+    for i in range(len(order) - 1, 0, -1):
+        r = (r * 6364136223846793005 + 1442695040888963407) % (1 << 64)
+        j = r % (i + 1)
+        order[i], order[j] = order[j], order[i]
+    return order
+
+
+def generate_query_streams(output_dir: str, streams: int, rngseed: int,
+                           template_dir: str = TEMPLATE_DIR,
+                           template: int | None = None) -> list[str]:
+    """Write query_0.sql .. query_{streams-1}.sql (or a single template's
+    instantiations when ``template`` is given, mirroring dsqgen -template)."""
+    os.makedirs(output_dir, exist_ok=True)
+    numbers = [template] if template else available_templates(template_dir)
+    paths = []
+    for s in range(streams):
+        path = os.path.join(output_dir, f"query_{s}.sql")
+        with open(path, "w") as f:
+            for n in _permutation(numbers, s, rngseed):
+                sql = instantiate(n, s, rngseed, template_dir)
+                f.write(f"-- start query {n} using template query{n}.tpl\n")
+                f.write(sql.rstrip().rstrip(";") + ";\n\n")
+        paths.append(path)
+    return paths
+
+
 def split_special_query(query_name: str, sql: str) -> list[tuple[str, str]]:
     """Split a two-statement special query into _part1/_part2 units."""
     stmts = [s.strip() for s in sql.split(";") if s.strip()]
@@ -167,3 +209,22 @@ def template_units(stream: int, rngseed: int,
         units += split_special_query(f"query{number}", sql) \
             if number in SPECIAL_TEMPLATES else [(f"query{number}", sql)]
     return units
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = argparse.ArgumentParser(prog="nds_tpu_torch.streams")
+    p.add_argument("output_dir")
+    p.add_argument("--streams", type=int, default=1)
+    p.add_argument("--rngseed", type=int, required=True,
+                   help="seed (the bench uses the load-test end timestamp)")
+    p.add_argument("--template", type=int, default=None)
+    p.add_argument("--template_dir", default=TEMPLATE_DIR)
+    a = p.parse_args(argv)
+    paths = generate_query_streams(a.output_dir, a.streams, a.rngseed,
+                                   a.template_dir, a.template)
+    print("\n".join(paths))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -299,6 +299,39 @@ def test_seg_reduce_multi_scratch_is_clear_after_graph_replays(dev):
     assert len(words) == 1 and int(torch.count_nonzero(words[0])) == 0
 
 
+def test_a_graph_keeps_its_scratch_when_a_later_call_grows_it(dev):
+    """A graph captured over the segment reduction's scratch words replays
+    right after a larger call on its stream grew the scratch and tensors
+    of the old words' size were made and filled with ones (words the
+    kernel would take for partial sums and its block ticket, were they
+    handed over): the grown buffer's predecessor stays allocated, so the
+    graph writes the plain version's result over its outputs, filled
+    first, and the new tensors keep their values."""
+    _, fn, plain = _kernel_calls(dev)[1]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph, out = _capture(fn, stream)
+    [old] = [w.numel() for (_, st), w in ck._SEG_SCRATCH.items()
+             if st == stream.cuda_stream]
+    g = torch.Generator().manual_seed(5)
+    n, S = 100_000, 2000
+    gid = torch.randint(0, S, (n,), generator=g, dtype=torch.int32).to(dev)
+    data = torch.randint(-9, 9, (n,), generator=g).to(dev)
+    with torch.cuda.stream(stream):
+        big = ck.seg_reduce_multi([(data, "sum")], gid, S)
+        # tensors of the old words' size: freed, the words would be theirs
+        junk = [torch.full((old,), 1, dtype=torch.int64, device=dev)
+                for _ in range(64)]
+        for _ in range(2):
+            for o in out:
+                o.fill_(7)
+            graph.replay()
+    stream.synchronize()
+    _same(out, list(plain()))
+    _same(big, ck.seg_reduce_multi_plain([(data, "sum")], gid, S))
+    assert all(int(j.min()) == 1 and int(j.max()) == 1 for j in junk)
+
+
 def test_graphs_sharing_a_pool_replay_alternately(dev):
     """Two graphs in one memory pool, replayed A, B, A, B on one stream,
     each output consumed (copied) before the next replay: the eager bits

@@ -9,8 +9,8 @@ the XLA lowering is bit-identical to it) and its ``backend="numpy"``
 result: integer, date and decimal columns bit-identical, float columns to
 rtol 1e-9. Also here: the port imports neither jax nor nds_tpu (while
 it runs the star query in-core and streamed, a window query and a set
-operation, and the query service's batched dispatch), and it never runs
-on the CPU unless asked to.
+operation, and the query service's batched dispatch, and imports the
+benchmark drivers), and it never runs on the CPU unless asked to.
 """
 import os
 import subprocess
@@ -103,6 +103,17 @@ import nds_tpu_torch as nt
 for m in pkgutil.walk_packages(nt.__path__, "nds_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+# the benchmark drivers: streams, power, throughput, validator, reports
+import tempfile
+from nds_tpu_torch import check, power, report, streams, throughput, validate
+from nds_tpu_torch.obs import device_time
+[path] = streams.generate_query_streams(tempfile.mkdtemp(), 1, 3)
+assert len(power.gen_sql_from_stream(open(path).read())) == 103
+assert report.BenchReport(nt.EngineConfig(device="cpu")).summary[
+    "env"]["host"]["device_name"] == "cpu"
+assert callable(throughput.run_throughput) and callable(validate.main)
+assert callable(check.check_json_summary_folder)
+assert device_time.PROGRAMS is nt.obs.PROGRAMS
 rng = np.random.default_rng(17)
 fact = pa.table({"fk": pa.array(rng.integers(0, 520, 8192), type=pa.int32()),
                  "qty": pa.array(rng.integers(1, 100, 8192), type=pa.int32()),
