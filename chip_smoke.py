@@ -11,6 +11,15 @@ Phases, one JSON line each:
    native data generator built beside them);
 2. data: NDS tables generated at --sf by the native generator into a
    temporary directory and registered from CSV, decimals as exact int64;
+2b. load: the Load Test, nds_tpu_torch.transcode.transcode over every
+   SF10 table, before any other work runs beside it: the generated CSV
+   into the snapshot warehouse in the temporary directory, decimals
+   exact (``use_decimal``), the seven fact tables partitioned by date
+   (about 1,800 files each). Reports the Load Test Time and each table's
+   seconds from its report, each table's files and Parquet bytes, the
+   RNGSEED line, each table's CSV parse and manifest commit, and the
+   seconds the writer processes spent in the manifests' per-file stats,
+   apart;
 3. queries: NDS queries 3, 7, 9, 42, 55 and 96, and the queries of the
    window, set-operation and concatenation paths, 2, 5, 12, 38, 47, 51,
    67 and 87 (stream 0, template seed 3), through
@@ -63,27 +72,30 @@ Phases, one JSON line each:
 3b''. power: the same 14 queries as a user's power run takes them, after
    the service's session is freed: stream 0 of the port's streams
    (nds_tpu_torch.streams, seed SEED: the query phase's statements)
-   through nds_tpu_torch.power.run_query_stream over the SF10 CSV
-   tables, warmup 2 (every query recorded, every recorded unit compiled
-   ahead by precompile_parallel, then one compiled run), strict, with
-   Parquet outputs and JSON summaries, the shared programs cleared first
-   as in a fresh process. Every output equals the query phase's oracle
-   result (integers and decimals bit-identical, floats to rtol 1e-9),
-   every timed run replays a CUDA graph ("compiled"), the compile pass
-   compiles every unit. Reports the Power Test Time and each query's ms
-   from the time log, the statuses, the graphs' ms, the launches and the
-   top programs by device time (obs.device_time). Counters zeroed just
-   before, read just after;
-3c. transcode: store_sales, catalog_sales and inventory from the CSV to
-   Parquet (pyarrow on the host) in the temporary directory, registered
-   with register_parquet on a new session (their row counts then come
-   from the Parquet metadata; the other tables stay CSV);
+   through nds_tpu_torch.power.run_query_stream over the warehouse
+   (setup_tables registers its pinned snapshot), warmup 2
+   (every query recorded, every recorded unit compiled ahead by
+   precompile_parallel, then one compiled run), strict, with Parquet
+   outputs and JSON summaries, the shared programs cleared first as in a
+   fresh process. Every output equals the query phase's oracle result
+   (integers and decimals bit-identical, floats to rtol 1e-9), every
+   timed run replays a CUDA graph ("compiled"), the compile pass compiles
+   every unit. Reports the Power Test Time and each query's ms from the
+   time log, the record pass's seconds, the statuses, the graphs' ms, the
+   launches and the top programs by device time (obs.device_time).
+   Counters zeroed just before, read just after;
+3c. the streamed phases' session attaches the warehouse
+   (Session.attach_warehouse): every table registers from its pinned
+   snapshot, and a streamed scan plans its lanes and encodings from the
+   manifest's per-file stats; a stat read from the data fails the phase;
 3d. stream_default: at the reference's defaults (48M-row threshold,
    4,194,304-row morsels, packed narrow lanes with dictionary and
    run-length encodings) the SF10 units that scan inventory (133.1M
-   rows): q21, q22, q37, q72 and q82 must stream it, 32 morsels a pass,
+   rows, 261 date partitions): q21, q22, q37, q72 and q82 must stream it,
+   32 morsels a pass,
    and q39's two parts (no streaming job) run in-core over the whole
-   table; each unit cold and three times warm, held against the numpy
+   table; each unit cold and twice warm (a third warm pass is cut),
+   held against the numpy
    executor, which runs in two forked workers beside this phase and the
    ones after (q72's alone takes about 6 minutes), the checks at the end;
 3e. stream_plain: q22 and q82 as in 3d but with ``narrow_lanes=False``
@@ -93,9 +105,11 @@ Phases, one JSON line each:
    staging and decode times and warm walls beside both packed runs', and
    the plain runs must upload more bytes;
 3f. stream_lowered: phase query's queries with the threshold at 10M rows:
-   all but 12, 38 and 87 stream store_sales (7 morsels) or catalog_sales
-   (4), cold and once warm, held against phase query's oracle
-   results and phase replay's in-core results. Both streamed phases fail
+   all but 12, 38 and 87 stream store_sales (7 morsels a pass, from
+   about 1,800 files) or catalog_sales (4), cold only (its warm pass is
+   cut: the phase's queries replay in phase replay already), held
+   against phase query's oracle results and phase replay's in-core
+   results. Both streamed phases fail
    on a fallback, a prefetch error, a query expected to stream that ran
    in-core (or the reverse), and a graph capture on a warm pass, and
    report per unit the walls, morsels, bytes uploaded and the upload
@@ -120,10 +134,12 @@ Phases, one JSON line each:
    times the kernels of other checkouts on the same inputs, in turns;
 6. templates: every unit of the 99 NDS templates (103: four templates
    hold two statements) at --templates_sf (0.5 by default) through the
-   drivers: stream files 0-2 from the port's streams; a cold power run of
-   stream 0 (warmup 0: every unit records) and a warm one (warmup 2: the
-   compile pass, then compiled runs), strict, each output Pass by the
-   port's validator and equal under the port's rules to a numpy power run
+   drivers over the generated CSV, whose decimals the drivers read as
+   doubles, as the reference's do: stream files 0-2 from the port's
+   streams; a cold power run of stream 0 (warmup 0: every unit records)
+   and a warm one (warmup 2: the compile pass, then compiled runs),
+   strict, each output Pass by the port's validator in its float mode and
+   equal under the port's rules (floats to rtol 1e-9) to a numpy power run
    of stream 0 (forked in three workers beside them); then the throughput
    runner over streams 1 and 2 and the 14 queries, strict, in process
    mode (one ``python -m nds_tpu_torch.power`` a stream on the card) and
@@ -1096,11 +1112,9 @@ def phase_service(session, ck, loop: bool = False) -> dict:
 # the streamed (out-of-core) path
 # ---------------------------------------------------------------------------
 
-#: the tables the streamed phases read from Parquet (their row counts then
-#: come from its metadata), transcoded from the generated CSV
-STREAMED_TABLES = ("store_sales", "catalog_sales", "inventory")
-#: Parquet row groups of the transcode: one per default morsel
-ROW_GROUP_ROWS = 1 << 22
+#: each streamed table's morsels a pass at SF10 (its rows over the
+#: default 4,194,304-row morsel), whatever its files
+MORSELS = {"inventory": 32, "store_sales": 7, "catalog_sales": 4}
 #: the SF10 units that scan inventory: five stream it at the default
 #: settings, and q39's two parts find no streaming job and run in-core
 STREAM_DEFAULT = ("query21", "query22", "query37", "query72", "query82")
@@ -1113,64 +1127,107 @@ INCORE_DEFAULT = ("query39_part1", "query39_part2")
 #: job and run in-core
 LOWERED_MIN_ROWS = 10_000_000
 INCORE_LOWERED = ("query12", "query38", "query87")
-#: warm runs of each unit after its cold run: three in stream_default, one
-#: in stream_lowered (its 14 queries replay in phase replay already)
-WARM_PASSES = 3
-WARM_PASSES_LOWERED = 1
+#: warm runs of each unit after its cold run: two in stream_default,
+#: none in stream_lowered (the smoke's two cuts, in this order, so that
+#: it keeps to its time with the Load Test in it: stream_lowered's 14
+#: queries replay in phase replay already, and a third warm pass of
+#: stream_default's units repeated the second)
+WARM_PASSES = 2
+WARM_PASSES_LOWERED = 0
 
 
-def phase_transcode(tmp: str, name: str = "data") -> dict:
-    """STREAMED_TABLES from the generated CSV to Parquet (pyarrow on the
-    host, four files at a time), one file for each CSV file. Returns
-    {table: directory}."""
-    from concurrent.futures import ThreadPoolExecutor
+def phase_load(tmp: str, name: str = "data") -> str:
+    """The Load Test: nds_tpu_torch.transcode over every table of the
+    generated CSV into a warehouse, decimals exact, fact tables
+    partitioned. Returns the warehouse's root."""
+    from nds_tpu_torch import transcode, warehouse
+    wh = os.path.join(tmp, "warehouse")
+    report = os.path.join(tmp, "load_report.txt")
+    # each table's CSV parse and manifest commit, timed apart
+    parts: dict = {"csv_s": {}, "commit_s": {}}
+    load_csv, commit = transcode.load_csv, warehouse.WarehouseTable._commit
 
-    import pyarrow.csv as pa_csv
-    import pyarrow.parquet as pq
-    from nds_tpu_torch.schema import get_schemas
+    def timed_load(path, schema):
+        t = time.perf_counter()
+        out = load_csv(path, schema)
+        parts["csv_s"][os.path.basename(path)] = time.perf_counter() - t
+        return out
 
-    def one(job):
-        schema, src, target = job
-        t = pa_csv.read_csv(
-            src,
-            read_options=pa_csv.ReadOptions(
-                column_names=[c.name for c in schema]),
-            parse_options=pa_csv.ParseOptions(delimiter="|"),
-            convert_options=pa_csv.ConvertOptions(
-                column_types={c.name: c.type for c in schema},
-                null_values=[""], strings_can_be_null=True))
-        pq.write_table(t, target, row_group_size=ROW_GROUP_ROWS)
-        return t.num_rows, os.path.getsize(target)
-
+    def timed_commit(wt, files):
+        t = time.perf_counter()
+        out = commit(wt, files)
+        parts["commit_s"][wt.name] = time.perf_counter() - t
+        return out
+    transcode.load_csv, warehouse.WarehouseTable._commit = \
+        timed_load, timed_commit
     t0 = time.perf_counter()
-    out, jobs = {}, []
-    for table in STREAMED_TABLES:
-        schema = get_schemas(True)[table].arrow_schema(use_decimal=True)
-        src = os.path.join(tmp, name, table)
-        out[table] = os.path.join(tmp, "parquet", table)
-        os.makedirs(out[table])
-        jobs += [(table, (schema, os.path.join(src, f),
-                          os.path.join(out[table], f + ".parquet")))
-                 for f in sorted(os.listdir(src))
-                 if os.path.getsize(os.path.join(src, f)) > 0]
-    with ThreadPoolExecutor(4) as pool:
-        done = list(pool.map(one, [job for _, job in jobs]))
-    rows = {t: sum(n for (tt, _), (n, _) in zip(jobs, done) if tt == t)
-            for t in STREAMED_TABLES}
-    emit("transcode", seconds=time.perf_counter() - t0, rows=rows,
-         parquet_bytes=sum(b for _, b in done))
-    return out
+    try:
+        with warehouse.FileWriters() as writers:
+            times = transcode.transcode(os.path.join(tmp, name), wh, report,
+                                        use_decimal=True, writers=writers)
+    finally:
+        transcode.load_csv, warehouse.WarehouseTable._commit = \
+            load_csv, commit
+    wall = time.perf_counter() - t0
+    with open(report) as f:
+        lines = f.read().splitlines()
+    files, nbytes = {}, {}
+    for table in times:
+        paths = warehouse.Warehouse(wh).table(table).current_files()
+        files[table] = len(paths)
+        nbytes[table] = sum(os.path.getsize(p) for p in paths)
+    emit("load", seconds=wall, load_test_time=lines[0], table_s=times,
+         rngseed=lines[-1], files=files, parquet_bytes=nbytes,
+         manifest_bytes=sum(os.path.getsize(os.path.join(
+             wh, t, "manifest.json")) for t in times),
+         # the partitioned tables' files, summed over the files in
+         # whichever writer process took them; the spills' seconds
+         stats_s=writers.seconds["stats"], write_s=writers.seconds["write"],
+         spill_s=writers.seconds["spill"], write_procs=writers.procs,
+         **parts)
+    if len(times) != 24:
+        raise SystemExit(f"load: {len(times)} tables, not 24")
+    return wh
 
 
-def stream_session(nt, tmp: str, parquet: dict, device: str = "cuda",
-                   name: str = "data"):
-    """A session over the generated data, STREAMED_TABLES from Parquet."""
-    from nds_tpu_torch import datagen
+class StatsReads:
+    """Counts the column stats taken from the data rather than a
+    manifest, while it is entered: Parquet row-group metadata passes
+    (arrow_bridge.parquet_column_stats) and column reads for encoding
+    stats (arrow_bridge.column_enc_stat)."""
+
+    NAMES = ("parquet_column_stats", "column_enc_stat")
+
+    def __init__(self):
+        self.calls = {n: 0 for n in self.NAMES}
+
+    def __enter__(self):
+        from nds_tpu_torch.engine import arrow_bridge
+        self.orig = {n: getattr(arrow_bridge, n) for n in self.NAMES}
+        for n, fn in self.orig.items():
+            def counted(*a, _n=n, _fn=fn, **k):
+                self.calls[_n] += 1
+                return _fn(*a, **k)
+            setattr(arrow_bridge, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from nds_tpu_torch.engine import arrow_bridge
+        for n, fn in self.orig.items():
+            setattr(arrow_bridge, n, fn)
+        return False
+
+
+def stream_session(nt, wh: str, device: str = "cuda"):
+    """A session over the warehouse (its pinned snapshot)."""
+    from nds_tpu_torch.warehouse import Warehouse
     session = nt.Session(nt.EngineConfig(decimal_physical="i64"),
                          device=device)
-    datagen.setup_tables(session, os.path.join(tmp, name), use_decimal=True)
-    for table, path in parquet.items():
-        session.register_parquet(table, path)
+    t0 = time.perf_counter()
+    session.attach_warehouse(Warehouse(wh))
+    emit("stream_session", attach_s=time.perf_counter() - t0,
+         warehouse_version=session.warehouse_version(),
+         tables=len(session._schemas))
     return session
 
 
@@ -1233,7 +1290,8 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
                      preload: tuple = (), deferred: tuple = (),
                      warm: int = WARM_PASSES,
                      oracle_from: dict | None = None,
-                     every_kernel: bool = True):
+                     every_kernel: bool = True,
+                     morsels: dict | None = None):
     """Each (name, sql) of `units` through Session.sql(backend="torch"),
     cold and then `warm` times warm, with the launch counters zeroed
     just before the first run and read just after the last. A unit of
@@ -1250,8 +1308,11 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
     it; with `oracle_from` ({unit: (result, seconds)}, which another
     phase's finish fills) no workers start and the deferred units are
     checked against it. With narrow_lanes on, every table a streamed run
-    streams must ride packed lanes. Each kernel must have launched in the
-    phase where `every_kernel`. Returns (counter totals, captured
+    streams must ride packed lanes. A streamed table of `morsels`
+    ({table: morsels a pass}) must stream in that many. No column stat
+    may come from the data (StatsReads): the warehouse's manifests have
+    them all. Each kernel must have launched in the phase where
+    `every_kernel`. Returns (counter totals, captured
     launches, a function that checks and emits the deferred units, fills
     the oracle store and returns their lines, the oracle store, and
     {unit: _streamed_fields} of the streamed units)."""
@@ -1267,10 +1328,12 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
     emit(f"{phase}_oracle_start", preload=list(preload),
          seconds=time.perf_counter() - t0, deferred=[n for n, _ in later])
     runs, failed = {}, []
+    reads = StatsReads()
     ck.reset_launches()                 # the path starts here
     for name, sql in units:
         before = dict(ck.LAUNCHES)
-        rr = [_sql_run(session, sql, True) for _ in range(1 + warm)]
+        with reads:
+            rr = [_sql_run(session, sql, True) for _ in range(1 + warm)]
         runs[name] = (rr, {k: ck.LAUNCHES[k] - before[k]
                            for k in ck.LAUNCHES})
         for i, (_, _, st, _) in enumerate(rr):
@@ -1298,7 +1361,14 @@ def run_stream_units(session, ck, units: list, phase: str, streamed: tuple,
                 failed.append(f"{name} (run {i}): streamed tables "
                               f"{sorted(st['morsels_per_table'])} but packed "
                               f"{sorted(st['lane_spec'])}")
+            for table, n in st["morsels_per_table"].items():
+                if morsels is not None and n != morsels.get(table, n):
+                    failed.append(f"{name} (run {i}): {n} morsels of "
+                                  f"{table}, not {morsels[table]}")
     totals = dict(ck.LAUNCHES)          # read just after the path
+    if any(reads.calls.values()):
+        failed.append(f"{phase}: column stats read from the data, not the "
+                      f"manifests: {reads.calls}")
     fields = {n: _streamed_fields(runs[n][0]) for n in runs
               if n in streamed and runs[n][0][0][2].get("mode") == "streamed"}
 
@@ -1383,13 +1453,14 @@ def phase_stream_default(session, ck, scale: float = 1.0) -> dict:
         stream=0, rngseed=SEED) if n in names]
     totals, captured, finish, store, fields = run_stream_units(
         session, ck, units, "stream_default", STREAM_DEFAULT,
-        preload=("inventory",),
+        preload=("inventory",), morsels=MORSELS if scale == 1 else None,
         # the longest first: q72 takes one worker, the rest the other
         deferred=("query72", "query22", "query39_part1", "query39_part2",
                   "query21", "query37", "query82"))
     emit("stream_default_launches", totals=totals)
     return {"totals": totals, "captured": captured, "finish": finish,
-            "oracle": store, "fields": fields, "units": units}
+            "oracle": store, "fields": fields, "units": units,
+            "morsels": MORSELS if scale == 1 else None}
 
 
 def phase_stream_plain(session, ck, default: dict) -> dict:
@@ -1409,7 +1480,8 @@ def phase_stream_plain(session, ck, default: dict) -> dict:
             out[phase] = run_stream_units(
                 session, ck, units, phase, STREAM_PLAIN,
                 deferred=STREAM_PLAIN, warm=1,
-                oracle_from=default["oracle"], every_kernel=False)
+                oracle_from=default["oracle"], every_kernel=False,
+                morsels=default["morsels"])
         finally:
             session.config.narrow_lanes = True
     keys = ("bytes_uploaded", "warm_s", "stage_ms", "host_decode_ms",
@@ -1454,7 +1526,7 @@ def phase_stream_lowered(session, ck, oracle, replay: dict,
     totals, captured, *_ = run_stream_units(
         session, ck, units, "stream_lowered", streamed, oracle=oracle,
         incore=replay["results"], incore_walls=replay["walls"],
-        warm=WARM_PASSES_LOWERED)
+        warm=WARM_PASSES_LOWERED, morsels=MORSELS if scale == 1 else None)
     emit("stream_lowered_launches", totals=totals, captured=captured)
     return {"totals": totals, "captured": captured}
 
@@ -1539,13 +1611,31 @@ def _read_output(prefix: str, name: str):
         os.path.join(prefix, name, "part-0.parquet")), True)
 
 
+class _Lines:
+    """A stdout that passes everything on and keeps the lines starting
+    with `prefix`."""
+
+    def __init__(self, out, prefix: str):
+        self.out, self.prefix, self.kept, self.buf = out, prefix, [], ""
+
+    def write(self, text: str) -> int:
+        self.buf += text
+        *done, self.buf = self.buf.split("\n")
+        self.kept += [ln for ln in done if ln.startswith(self.prefix)]
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
 def power_run(data: str, stream_file: str, root: str, tag: str,
-              **kw) -> dict:
+              input_format: str = "csv", **kw) -> dict:
     """One power run (nds_tpu_torch.power.run_query_stream) over the CSV
-    tables, with outputs and JSON summaries under root/<tag>_*; returns its
-    wall, the Power Test Time and each unit's ms from its time log, each
-    unit's status and execStats modes from its summary, and what its
-    compile pass returned."""
+    tables or a warehouse, with outputs and JSON summaries under
+    root/<tag>_*; returns its wall, the Power Test Time and each unit's ms
+    from its time log, each unit's status and execStats modes from its
+    summary, what its compile pass returned and the record pass's seconds
+    (the runner's "precompile:" line)."""
     import csv as _csv
     from nds_tpu_torch import power
     out = os.path.join(root, f"{tag}_out")
@@ -1553,10 +1643,18 @@ def power_run(data: str, stream_file: str, root: str, tag: str,
     log = os.path.join(root, f"{tag}_time.csv")
     t0 = time.perf_counter()
     compile_report: dict = {}
-    power.run_query_stream(data, stream_file, log, input_format="csv",
-                           output_prefix=out, json_summary_folder=js,
-                           compile_report=compile_report, **kw)
+    lines = _Lines(sys.stdout, "precompile:")
+    sys.stdout = lines
+    try:
+        power.run_query_stream(data, stream_file, log,
+                               input_format=input_format, output_prefix=out,
+                               json_summary_folder=js,
+                               compile_report=compile_report, **kw)
+    finally:
+        sys.stdout = lines.out
     wall = time.perf_counter() - t0
+    record_s = [float(ln.split(" in ")[1].split("s;")[0])
+                for ln in lines.kept]
     with open(log) as f:
         rows = [r for r in _csv.reader(f) if r]
     summaries = {}
@@ -1575,6 +1673,7 @@ def power_run(data: str, stream_file: str, root: str, tag: str,
         "graph_ms": {n: s["execStats"][-1].get("graph_ms")
                      for n, s in summaries.items() if s.get("execStats")},
         "precompile": list(compile_report.values()),
+        "record_s": record_s[0] if record_s else None,
     }
 
 
@@ -1598,8 +1697,9 @@ def _run_faults(run: dict, tag: str, mode: str) -> list:
 def phase_power(ck, data: str, oracle, tmp: str,
                 device: str = "cuda") -> dict:
     """QUERIES as a user's power run takes them: stream 0 of the port's
-    streams (seed SEED) over the SF10 CSV tables through
-    nds_tpu_torch.power.run_query_stream, warmup 2, strict, in a process
+    streams (seed SEED) over the SF10 warehouse `data` (phase load)
+    through nds_tpu_torch.power.run_query_stream, warmup 2, strict, in a
+    process
     whose shared programs are cleared (as a fresh process's). Every
     output equals the query phase's oracle result (`oracle`, the
     OracleForks, waited for after the run), every timed run replays a
@@ -1623,9 +1723,9 @@ def phase_power(ck, data: str, oracle, tmp: str,
     compiled.clear_shared_programs()
     device_time.PROGRAMS.reset()
     ck.reset_launches()                 # the path starts here
-    run = power_run(data, stream0, root, "power", warmup=POWER_WARMUP,
-                    strict=True, sub_queries=[n for n, _ in units],
-                    device=device)
+    run = power_run(data, stream0, root, "power", input_format="parquet",
+                    warmup=POWER_WARMUP, strict=True,
+                    sub_queries=[n for n, _ in units], device=device)
     totals = dict(ck.LAUNCHES)          # read just after the path
     failed += _run_faults(run, "power", "compiled")
     if not run["precompile"] or set(run["precompile"]) != {"compiled"}:
@@ -1637,6 +1737,7 @@ def phase_power(ck, data: str, oracle, tmp: str,
             failed.append(f"power: {name} disagrees with the oracle: {bad}")
     top = device_time.PROGRAMS.table(top=10)
     emit("power", units=len(units), wall_s=run["wall_s"],
+         record_s=run["record_s"],
          power_test_ms=run["power_test_ms"], query_ms=run["query_ms"],
          status=run["status"], graph_ms=run["graph_ms"],
          precompile={"units": len(run["precompile"]),
@@ -1676,13 +1777,16 @@ def _numpy_throughput(data: str, stream_dir: str, logs: str, out: str,
 
 
 def _outputs_faults(want: str, got: str, names: list, tag: str) -> list:
-    """`got`'s outputs against `want`'s: Pass by the port's validator
-    (query65 is NotAttempted there) and equal under the port's rules."""
+    """`got`'s outputs against `want`'s, both read from CSV (decimals as
+    doubles): Pass by the port's validator in its float mode (query65 and
+    query67 are NotAttempted there) and equal under the port's rules
+    (floats to rtol 1e-9)."""
     from nds_tpu_torch import validate
     faults = []
-    status = validate.iterate_queries(want, got, names, use_floats=False)
+    status = validate.iterate_queries(want, got, names, use_floats=True)
     for n, st in status.items():
-        if st == "Fail" or (st != "Pass" and not n.startswith("query65")):
+        if st == "Fail" or (st != "Pass" and n.split("_part")[0] not in
+                            validate.SKIP_ALWAYS + validate.SKIP_WITH_FLOATS):
             faults.append(f"{tag}: {n} {st}")
         bad = validate.table_mismatches(_read_output(got, n),
                                         _read_output(want, n))
@@ -2243,6 +2347,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         session = phase_data(nt, args.sf, tmp)
+        wh = phase_load(tmp)
         recorder = Recorder(ck)
         spare_labels = {f"query{q}" for q in SPARE_SLOT_QUERIES}
         recorder.wrap(kernels, "first_row_per_gid",
@@ -2259,7 +2364,7 @@ def main() -> int:
         del session             # its tables, host and device, are done
         gc.collect()
         torch.cuda.empty_cache()
-        power = phase_power(ck, os.path.join(tmp, "data"), oracle, tmp)
+        power = phase_power(ck, wh, oracle, tmp)
         # the query and replay phases' results against the oracle, which
         # ran beside them and the phases since
         query_check()
@@ -2269,7 +2374,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         scale = args.sf / 10
-        ssession = stream_session(nt, tmp, phase_transcode(tmp))
+        ssession = stream_session(nt, wh)
         streamed = {
             "stream_default": phase_stream_default(ssession, ck, scale)}
         streamed["stream_plain"] = phase_stream_plain(

@@ -94,6 +94,13 @@ class EngineConfig:
     # columns of up to 33.5M padded rows) must stay resident between
     # queries, while half the card stays free for intermediates and graphs
     scan_budget_gb: float = 40.0
+    # -- transactional warehouse (warehouse.py _snapshots log) -------------
+    # PIN reader registrations (Warehouse.register_all) to the latest
+    # published warehouse version, so a statement never sees table A at
+    # version k beside table B at k+1. False = the pre-transactional
+    # manifest-latest reads, no _snapshots log consulted.
+    # Property: nds.tpu.warehouse_transactions.
+    warehouse_transactions: bool = True
     # -- resilience (nds_tpu_torch/resilience.py) --------------------------
     # per-query wall-clock budget in seconds; an overrun abandons the query
     # and records Failed (DeadlineExceeded). 0 = unbounded.

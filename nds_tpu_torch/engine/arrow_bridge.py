@@ -4,6 +4,8 @@
 # integer column's nulls fill in Arrow, and decimals pass between scaled
 # int64 and decimal128 storage without a per-row Python loop): the
 # streamed path decodes every morsel and merges every partial through here.
+# A file's footer is read once for its row count and dictionary columns
+# (parquet_footers).
 """Arrow <-> engine Table conversion.
 
 Arrow is the host-side interchange format (the `collect()` analog in the
@@ -335,55 +337,70 @@ def merge_enc_stats(parts: list) -> "dict | None":
 
 # -- parquet dictionary pass-through (staging-thread hot loop) ----------------
 
-def parquet_dictionary_columns(paths) -> list[str]:
-    """String columns dictionary-encoded in EVERY column chunk of every
-    row group of the given parquet files (metadata only, no data read).
-    Reading these with ParquetReadOptions(dictionary_columns=...) hands
-    the staging thread codes + dictionary directly — from_arrow_column
-    then skips its dictionary_encode() re-encoding pass, the hot loop of
-    double-buffered morsel staging."""
+def parquet_footers(paths) -> tuple:
+    """(rows, dictionary columns) of parquet files from their footers
+    alone, one read a file, on a few threads. The dictionary columns are
+    the string columns dictionary-encoded in EVERY column chunk of every
+    row group of every file: reading these with
+    ParquetReadOptions(dictionary_columns=...) hands the staging thread
+    codes + dictionary directly, and from_arrow_column then skips its
+    dictionary_encode() re-encoding pass, the hot loop of double-buffered
+    morsel staging. (None, []) when a footer cannot be read."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import pyarrow.parquet as pq
 
-    cand = None
-    for path in paths:
-        try:
-            meta = pq.read_metadata(path)
-            schema = pq.read_schema(path)
-        except Exception:
-            return []
-        strs = {f.name for f in schema
-                if pa.types.is_string(f.type)
-                or pa.types.is_large_string(f.type)}
-        cand = strs if cand is None else (cand & strs)
-        names = meta.schema.names
-        for rg in range(meta.num_row_groups):
+    paths = list(paths)
+    try:
+        # (threads overlap the opens and reads where the file system is
+        # slow to answer; the parse holds the interpreter lock)
+        with ThreadPoolExecutor(min(8, max(1, len(paths) // 64))) as pool:
+            metas = list(pool.map(pq.read_metadata, paths))
+    except Exception:
+        return None, []
+    rows = 0
+    cand = first = None
+    for meta in metas:
+        rows += meta.num_rows
+        if first is None or not meta.schema.equals(first):
+            schema = meta.schema.to_arrow_schema()
+            strs = {f.name for f in schema
+                    if pa.types.is_string(f.type)
+                    or pa.types.is_large_string(f.type)}
+            cand = strs if cand is None else (cand & strs)
+            first = meta.schema
+        cols = [ci for ci, name in enumerate(meta.schema.names)
+                if name in cand]
+        for rg in range(meta.num_row_groups if cols else 0):
             group = meta.row_group(rg)
-            for ci in range(group.num_columns):
-                name = names[ci]
-                if name not in cand:
-                    continue
+            for ci in cols:
                 encs = set(group.column(ci).encodings)
                 if not (encs & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"}):
-                    cand.discard(name)
-    return sorted(cand or ())
+                    cand.discard(meta.schema.names[ci])
+    return rows, sorted(cand or ())
 
 
-def parquet_dataset_format(paths):
-    """A pyarrow dataset format that reads the (fully) dictionary-encoded
-    string columns of `paths` as dictionary arrays — zero-copy code
-    pass-through for the staging thread. None when nothing qualifies or
-    the pyarrow version lacks the option."""
+def dictionary_format(cols):
+    """A pyarrow dataset format that reads the string columns `cols` as
+    dictionary arrays (zero-copy code pass-through for the staging
+    thread); None when `cols` is empty or the pyarrow version lacks the
+    option."""
     import pyarrow.dataset as pa_dataset
 
-    cols = parquet_dictionary_columns(paths)
     if not cols:
         return None
     try:
         return pa_dataset.ParquetFileFormat(
             read_options=pa_dataset.ParquetReadOptions(
-                dictionary_columns=cols))
+                dictionary_columns=list(cols)))
     except Exception:
         return None
+
+
+def parquet_dataset_format(paths):
+    """dictionary_format of the fully dictionary-encoded string columns
+    of `paths` (parquet_footers)."""
+    return dictionary_format(parquet_footers(paths)[1])
 
 
 def _dedupe(names: list[str]) -> list[str]:

@@ -30,13 +30,22 @@ groups and between morsels to a preemption hook (``_maybe_preempt``).
 Every statement's stats land in ``last_exec_stats_typed`` through
 ``_finish_exec_stats``; ``last_stats`` stays the dict view.
 
+A Parquet warehouse (``nds_tpu_torch/warehouse.py``, the Load Test's
+output) attaches with ``attach_warehouse``: every table registers from the
+files of one published warehouse version (``at_version`` reads an older
+one), its value ranges and encoding stats aggregated from the manifests'
+per-file stats with no data read; ``refresh_warehouse`` moves to the
+latest published version between statements.
+
 Not in this slice: sharded morsels and feedback-adapted schedules; the
-result cache, system tables, DML and EXPLAIN ANALYZE.
+result cache, system tables, DML (INSERT and DELETE raise) and EXPLAIN
+ANALYZE.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import threading
 import time
 from typing import Callable, Optional
@@ -56,6 +65,10 @@ from . import arrow_bridge
 from .column import Table
 from .executor import Executor
 from .planner import Catalog, Planner
+
+
+#: the leading keyword of a DML statement, past comment lines
+_DML = re.compile(r"\s*(?:--[^\n]*\n\s*)*(INSERT|DELETE)\b", re.IGNORECASE)
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -110,6 +123,9 @@ class Session:
         self._est_rows: dict[str, int] = {}
         self._unique_cols: dict[str, frozenset] = {}
         self._cache: dict = {}
+        # table -> {column: Column} read so far by projections: a later
+        # projection reads only the columns none before it read
+        self._col_cache: dict[str, dict] = {}
         self._generation = 0
         self._exec = None
         self._exec_gen = -1
@@ -125,8 +141,15 @@ class Session:
         self._active_label: str = ""
         self._stmt_t0: float = 0.0
         self._stmt_log: bool = True
-        # the snapshot version of an attached warehouse: none in the port
+        # an attached warehouse (attach_warehouse): the version its
+        # registrations are pinned to (None: unpinned, manifest-latest),
+        # each table's manifest version under that pin, and each table's
+        # registered files (register_all skips a table whose files are
+        # unchanged)
+        self.warehouse = None
         self._warehouse_version: Optional[int] = None
+        self._table_snapshot_versions: dict[str, int] = {}
+        self._source_files: dict[str, tuple] = {}
         # morsel-boundary preemption: the query service installs a hook
         # the streamed path calls between scan groups and morsels (None:
         # one attribute read); _in_preempt keeps a nested statement from
@@ -175,6 +198,7 @@ class Session:
                     src[name] = fn
             for k in [k for k in self._cache if k[0] == name]:
                 del self._cache[k]
+            self._col_cache.pop(name, None)
             self._col_stats.pop(name, None)
             self._enc_stats.pop(name, None)
             self._generation += 1
@@ -353,7 +377,10 @@ class Session:
     def load_table(self, name: str, columns=None) -> Table:
         """Load a table, optionally projected to `columns`; cached per
         projection, and a cached full table serves any subset (a table
-        registered from CSV always loads whole first).
+        registered from CSV always loads whole first). Otherwise a
+        projection reads only the columns no earlier projection of the
+        table read (a scan of a warehouse table pays for each of its
+        files, whatever its columns).
         Thread-safe: the projection cache fills under the state lock."""
         with self._lock:
             key = (name, tuple(columns) if columns is not None else None)
@@ -368,7 +395,17 @@ class Session:
                             [full.columns[idx[c]] for c in columns])
                 self._cache[key] = sub
                 return sub
-            self._cache[key] = self._loaders[name](columns)
+            if columns is None:
+                self._cache[key] = self._loaders[name](None)
+                return self._cache[key]
+            read = self._col_cache.setdefault(name, {})
+            missing = list(dict.fromkeys(c for c in columns
+                                         if c not in read))
+            if missing:
+                got = self._loaders[name](missing)
+                read.update(zip(got.names, got.columns))
+            self._cache[key] = Table(list(columns),
+                                     [read[c] for c in columns])
             return self._cache[key]
 
     # -- query --------------------------------------------------------------
@@ -426,6 +463,7 @@ class Session:
         caller that needs its own uses service_run)."""
         if "system." in query or "SYSTEM." in query:
             self._maybe_system_query(query)
+        self._refuse_dml(query)
         with self._sql_lock:
             return self._sql_locked(query, backend, label)
 
@@ -435,6 +473,7 @@ class Session:
         ExecStats) atomically, and takes the plan the service's planner
         stage built (a first sighting then skips parsing and planning).
         The service cuts the statement's query-log row itself."""
+        self._refuse_dml(query)
         with self._sql_lock:
             table = self._sql_locked(query, backend, label, plan=plan,
                                      log_row=False)
@@ -495,6 +534,64 @@ class Session:
                 DEVICE_MEM.restore_window(win)
         return _scope()
 
+    # -- the warehouse (snapshot manifests) ----------------------------------
+    def attach_warehouse(self, warehouse,
+                         at_version: Optional[int] = None) -> None:
+        """Register every table of a Warehouse. With a published snapshot
+        log the registrations pin to ONE warehouse version; ``at_version``
+        time-travels the whole warehouse to an older published version
+        (``AS OF`` reads, read-only: nothing is committed)."""
+        self.warehouse = warehouse
+        warehouse.register_all(self, at_version=at_version)
+
+    def refresh_warehouse(self) -> None:
+        """Advance a snapshot-pinned reader to the latest PUBLISHED
+        warehouse version. Serialized on the statement lock, so an
+        in-flight statement finishes against the snapshot it pinned and
+        the next statement resolves against the new one."""
+        if self.warehouse is None:
+            return
+        with self._sql_lock:
+            self.warehouse.register_all(self)
+
+    def table_snapshot_version(self, name: str) -> Optional[int]:
+        """Manifest version of `name` under the pinned warehouse
+        snapshot, or None when the table's registration is unpinned
+        (non-warehouse source, no snapshot log, or mid-transaction)."""
+        return self._table_snapshot_versions.get(name)
+
+    def warehouse_version(self) -> Optional[int]:
+        """The warehouse version this session's registrations are
+        pinned to (None = unpinned/manifest-latest)."""
+        return self._warehouse_version
+
+    @staticmethod
+    def _manifest_enc_source(wt, files, dataset, dec):
+        """Per-column encoding-stats source for a warehouse registration:
+        manifest-recorded per-file stats aggregate with no data read;
+        an int, date or decimal column the manifest predates falls back to
+        one single-column dataset read (a column of another type has no
+        encoding stats, and is not read for none)."""
+        agg: dict = {}
+
+        def src(col):
+            if "done" not in agg:
+                try:
+                    agg["stats"] = wt.column_enc_stats(list(files))
+                except Exception:
+                    agg["stats"] = {}
+                agg["done"] = True
+            st = agg["stats"].get(col)
+            if st is not None:
+                return st
+            t = dataset.schema.field(col).type
+            if not (pa.types.is_integer(t) or pa.types.is_date(t)
+                    or (pa.types.is_decimal(t) and dec)):
+                return None
+            return arrow_bridge.column_enc_stat(
+                dataset.to_table(columns=[col]).column(col), dec)
+        return src
+
     def attach_result_cache(self, cache) -> None:
         raise NotImplementedError(
             "the semantic result cache (engine/result_cache.py) is not "
@@ -526,6 +623,16 @@ class Session:
             raise NotImplementedError(
                 "system.* tables (obs/system_tables.py) are not ported "
                 "yet: ROADMAP A.5")
+
+    @staticmethod
+    def _refuse_dml(query: str) -> None:
+        """Raise for an INSERT or DELETE statement: DML over the warehouse
+        (Data Maintenance) is not ported yet."""
+        m = _DML.match(query)
+        if m:
+            raise NotImplementedError(
+                f"{m.group(1).upper()} statements (Data Maintenance's DML "
+                "over the warehouse) are not ported yet: ROADMAP A.6.2")
 
     @staticmethod
     def _auto_label(query: str) -> str:

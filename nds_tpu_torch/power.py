@@ -9,7 +9,8 @@
 Capability parity with the reference power runner (reference
 nds/nds_power.py): stream parsing on ``-- start`` markers with the
 two-statement splits (gen_sql_from_stream :49-76), table registration from
-raw data or per-table Parquet directories (setup_tables :78-105), per-query
+raw data, per-table Parquet directories or the Load Test's snapshot
+warehouse (setup_tables :78-121), per-query
 timing under a BenchReport with JSON summaries (run_one_query :124-134 +
 PysparkBenchReport), output-column sanitization (ensure_valid_column_names
 :136-173), a CSV time log with ``Power Start/End/Test Time`` sentinel rows
@@ -22,17 +23,17 @@ Where the port differs from ``nds_tpu/power.py``:
   the property file);
 - ``--backend`` takes ``torch`` (the device path, the default) or
   ``numpy`` (the host oracle);
-- CSV decimals load as decimals (exact scaled int64 under the port's
-  default ``decimal_physical="i64"``; ``--decimal f64`` makes them
-  doubles), where the reference's CSV path reads them as doubles;
 - ``--profile_folder`` writes one ``torch.profiler`` Chrome trace a query;
 - ``--gpu_kernels`` (``EngineConfig.gpu_kernels``) replaces
   ``--pallas_ops``;
 - a JSON summary's ``execStats`` is the session's ``last_stats``;
-- not ported yet, each raising before any query runs: a warehouse layout
-  (a ``manifest.json`` under the input prefix; ROADMAP A.6), ``--explain``
-  and ``--verify_plans`` other than ``off`` (A.5), ``--mesh_shards`` above
-  1 (A.4).
+- not ported yet, each raising before any query runs: the maintenance
+  staging tables (ROADMAP A.6.2), ``--explain`` and ``--verify_plans``
+  other than ``off`` (A.5), ``--mesh_shards`` above 1 (A.4).
+
+As in the reference, CSV decimals load as doubles; exact decimals come
+from a warehouse transcoded with ``--use_decimal``
+(``nds_tpu_torch.transcode``).
 """
 from __future__ import annotations
 
@@ -97,23 +98,28 @@ def setup_tables(session: Session, input_prefix: str, input_format: str,
                  use_decimal: bool = True,
                  maintenance: bool = False) -> dict[str, float]:
     """Register the 24 source tables from per-table directories of CSV
-    (pipe-delimited) or Parquet files. Returns per-table registration
+    (pipe-delimited, decimals read as doubles) or Parquet files, or from a
+    warehouse layout (a ``manifest.json`` under the prefix: the pinned
+    snapshot, timed under "warehouse"). Returns per-table registration
     times (the reference times view creation, nds_power.py:94-104).
 
-    A warehouse layout (snapshot manifests) and the maintenance staging
-    tables are not ported yet (ROADMAP A.6)."""
+    The maintenance staging tables are not ported yet (ROADMAP A.6.2)."""
     if maintenance:
         raise NotImplementedError(
             "the maintenance staging tables (Data Maintenance) are not "
-            "ported yet: ROADMAP A.6")
+            "ported yet: ROADMAP A.6.2")
+    times: dict[str, float] = {}
     if input_format == "parquet" and glob.glob(
             os.path.join(input_prefix, "*", "manifest.json")):
-        raise NotImplementedError(
-            f"{input_prefix} holds a warehouse layout (manifest.json): the "
-            "warehouse and the Load Test are not ported yet: ROADMAP A.6")
+        # warehouse layout (snapshot manifests): register pinned snapshots,
+        # the reference's warehouse-catalog path (nds_power.py:107-121)
+        from .warehouse import Warehouse
+        t0 = time.perf_counter()
+        Warehouse(input_prefix).register_all(session)
+        times["warehouse"] = time.perf_counter() - t0
+        return times
     if input_format not in ("csv", "parquet"):
         raise ValueError(f"unsupported input format {input_format}")
-    times: dict[str, float] = {}
     for name, sch in get_schemas(use_decimal).items():
         path = os.path.join(input_prefix, name)
         if not os.path.exists(path):
@@ -121,7 +127,7 @@ def setup_tables(session: Session, input_prefix: str, input_format: str,
         t0 = time.perf_counter()
         if input_format == "csv":
             session.register_csv(name, path,
-                                 sch.arrow_schema(use_decimal=use_decimal))
+                                 sch.arrow_schema(use_decimal=False))
         else:
             session.register_parquet(name, path)
         times[name] = time.perf_counter() - t0

@@ -4,13 +4,15 @@ on the CPU.
 The stream files are byte-identical to the reference's, and so is their
 parsing. The port's power run (``backend="torch"`` on the CPU, where each
 CUDA kernel's plain version stands in) and the reference's (``backend=
-"jax"``) over plain per-table Parquet with exact decimals write outputs
-that pass the reference's validator and are equal under the port's rules
-(integers and decimals bit-identical), with the same Parquet schema; their
-time logs have the same labels and sentinel rows, and their JSON summaries
-the same keys but for the host capture's runtime keys. A warm power run
-over CSV (record all, compile ahead, then compiled runs) validates against
-the port's numpy power run.
+"jax"``) write outputs that pass the reference's validator and are equal
+under the port's rules, with the same Parquet schema: over plain per-table
+Parquet with exact decimals (integers and decimals bit-identical), and over
+CSV, whose decimals both read as doubles (integers bit-identical, floats
+to rtol 1e-9). Their time logs have the same labels and sentinel rows, and
+their JSON summaries the same keys but for the host capture's runtime
+keys. A warm power run (record all, compile ahead, then compiled runs)
+over CSV, and over a warehouse transcoded with ``--use_decimal``,
+validates against the port's numpy power run over the same input.
 """
 import json
 import os
@@ -21,13 +23,18 @@ import pytest
 from nds_tpu import power as rpower
 from nds_tpu import streams as rstreams
 from nds_tpu import validate as rvalidate
-from nds_tpu_torch import power, streams, validate
+from nds_tpu_torch import power, streams, transcode, validate
 from nds_tpu_torch.validate import table_mismatches
 from test_e2e_power import SUBSET
 from torch_drivers_cases import (RNGSEED, log_rows, make_data, output_table,
                                  stream)
 from torch_isolation import isolate_port_programs  # noqa: F401
 
+#: the tables SUBSET and query14 read, for a quicker Load Test
+WAREHOUSE_TABLES = ["catalog_sales", "customer", "date_dim",
+                    "household_demographics", "item", "store",
+                    "store_returns", "store_sales", "time_dim",
+                    "web_sales"]
 #: the host capture's runtime keys (jax in the reference, torch and the
 #: card in the port)
 RUNTIME_KEYS = {"jax", "jax_backend", "torch", "torch_cuda", "device_name",
@@ -39,18 +46,17 @@ def paths(tmp_path_factory):
     return make_data(str(tmp_path_factory.mktemp("drivers1")))
 
 
-@pytest.fixture(scope="module")
-def runs(paths, tmp_path_factory):
-    """The reference's and the port's power runs over the Parquet data,
-    exact decimals, each with outputs, a time log and JSON summaries."""
-    root = str(tmp_path_factory.mktemp("drivers1_runs"))
+def _runs(paths, root: str, input_format: str) -> dict:
+    """The reference's and the port's power runs over the Parquet data
+    (exact decimals) or the CSV data, each with outputs, a time log and
+    JSON summaries."""
     out = {}
     for side, fn, backend in (("ref", rpower.run_query_stream, "jax"),
                               ("port", power.run_query_stream, "torch")):
         kw = {"device": "cpu"} if side == "port" else {}
-        rows = fn(paths["parquet"], stream(paths),
+        rows = fn(paths[input_format], stream(paths),
                   os.path.join(root, f"time_{side}.csv"),
-                  input_format="parquet", backend=backend, decimal="i64",
+                  input_format=input_format, backend=backend, decimal="i64",
                   output_prefix=os.path.join(root, f"out_{side}"),
                   json_summary_folder=os.path.join(root, f"json_{side}"),
                   sub_queries=SUBSET, **kw)
@@ -59,6 +65,18 @@ def runs(paths, tmp_path_factory):
                      "out": os.path.join(root, f"out_{side}"),
                      "json": os.path.join(root, f"json_{side}")}
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(paths, tmp_path_factory):
+    return _runs(paths, str(tmp_path_factory.mktemp("drivers1_runs")),
+                 "parquet")
+
+
+@pytest.fixture(scope="module")
+def csv_runs(paths, tmp_path_factory):
+    return _runs(paths, str(tmp_path_factory.mktemp("drivers1_csv_runs")),
+                 "csv")
 
 
 @pytest.mark.parametrize("template", [None, 14])
@@ -101,7 +119,13 @@ def test_stream_parsing_equals_the_reference(paths):
         [power.strip_sql_comments(s).strip().rstrip(";") for _, s in want]
 
 
-def test_power_outputs_match_the_reference_power_run(runs):
+@pytest.mark.parametrize("input_format", ["csv", "parquet"])
+def test_power_outputs_match_the_reference_power_run(request, input_format):
+    """Over Parquet the decimals are exact on both sides and compare bit
+    for bit; over CSV both read them as doubles (ROADMAP C.10), which
+    compare to the port's float tolerance, rtol 1e-9."""
+    runs = request.getfixturevalue(
+        "runs" if input_format == "parquet" else "csv_runs")
     ref, port = runs["ref"], runs["port"]
     assert [r[0] for r in port["rows"]] == [r[0] for r in ref["rows"]] \
         == SUBSET
@@ -112,8 +136,8 @@ def test_power_outputs_match_the_reference_power_run(runs):
     for name in SUBSET:
         assert table_mismatches(output_table(port["out"], name),
                                 output_table(ref["out"], name)) == [], name
-        # the same Parquet schema: exact decimals written as the
-        # reference writes them
+        # the same Parquet schema: decimals (exact, or doubles from CSV)
+        # written as the reference writes them
         assert pq.read_schema(os.path.join(port["out"], name,
                                            "part-0.parquet")) == \
             pq.read_schema(os.path.join(ref["out"], name, "part-0.parquet"))
@@ -156,16 +180,26 @@ def test_json_summaries_keep_the_reference_keys(runs):
         assert [e["mode"] for e in p["execStats"]] == ["record"]
 
 
+@pytest.mark.parametrize("source", ["csv", "warehouse"])
 def test_warm_power_run_over_csv_validates_against_numpy(paths, tmp_path,
-                                                         capsys):
+                                                         capsys, source):
     """warmup=2, strict: every query recorded, every recorded unit
     compiled ahead, then every timed run compiled; the outputs Pass
-    against the port's numpy power run and equal it bit for bit."""
+    against the port's numpy power run over the same input and equal it
+    under the port's rules: over a warehouse transcoded with
+    --use_decimal, integers and decimals bit for bit; over CSV, whose
+    decimals read as doubles (ROADMAP C.10), integers bit for bit and
+    floats to rtol 1e-9."""
     sub = SUBSET + ["query14"]      # two statements, two units
     names = ["query1", "query3", "query14_part1", "query14_part2",
              "query42", "query96"]
-    power.run_query_stream(paths["csv"], stream(paths),
-                           str(tmp_path / "time.csv"), input_format="csv",
+    data, fmt = paths["csv"], "csv"
+    if source == "warehouse":
+        data, fmt = str(tmp_path / "wh"), "parquet"
+        transcode.transcode(paths["csv"], data, use_decimal=True,
+                            tables=WAREHOUSE_TABLES)
+    power.run_query_stream(data, stream(paths),
+                           str(tmp_path / "time.csv"), input_format=fmt,
                            output_prefix=str(tmp_path / "out"),
                            json_summary_folder=str(tmp_path / "json"),
                            sub_queries=sub, property_file=paths["cpu"],
@@ -178,18 +212,22 @@ def test_warm_power_run_over_csv_validates_against_numpy(paths, tmp_path,
     for name, summary in _summaries(str(tmp_path / "json")).items():
         assert [e["mode"] for e in summary["execStats"]] == ["compiled"], \
             name
-    power.run_query_stream(paths["csv"], stream(paths),
+    power.run_query_stream(data, stream(paths),
                            str(tmp_path / "time_np.csv"),
-                           input_format="csv", backend="numpy",
+                           input_format=fmt, backend="numpy",
                            output_prefix=str(tmp_path / "out_np"),
                            sub_queries=sub, property_file=paths["cpu"])
     status = validate.iterate_queries(str(tmp_path / "out_np"),
                                       str(tmp_path / "out"), names)
     assert set(status.values()) == {"Pass"}, status
+    dtypes = set()
     for name in names:
+        got = output_table(str(tmp_path / "out"), name)
         assert table_mismatches(
-            output_table(str(tmp_path / "out"), name),
-            output_table(str(tmp_path / "out_np"), name)) == [], name
+            got, output_table(str(tmp_path / "out_np"), name)) == [], name
+        dtypes |= {c.dtype for c in got.columns}
+    # exact decimals from the warehouse, doubles from CSV
+    assert ("dec2" in dtypes) == (source == "warehouse"), dtypes
     # the CLI validator over the same trees: the stream's other queries
     # have no output and fail, and the summaries get their statuses
     assert validate.main([str(tmp_path / "out_np"), str(tmp_path / "out"),

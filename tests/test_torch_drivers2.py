@@ -6,7 +6,8 @@ is retried; ``resume`` keeps the Power Start Time; a query over its
 deadline records Failed (DeadlineExceeded) while its abandoned worker
 stops before its next device work and the next query runs, equal to the
 numpy oracle. Also: every option the port has not yet raises naming its
-ROADMAP item before any query runs; without CUDA the runner raises unless
+ROADMAP item before any query runs (and SQL DML over a warehouse raises
+naming Data Maintenance's); without CUDA the runner raises unless
 the CPU is asked for; ``precompile_parallel`` compiles every recorded
 unit; the per-program device-time registry; the property file; the
 datagen CLI; the report's host capture and the preflight checks.
@@ -20,12 +21,13 @@ import pytest
 import torch
 
 import nds_tpu_torch as nt
-from nds_tpu_torch import check, datagen, power, resilience
+from nds_tpu_torch import check, datagen, power, resilience, transcode
 from nds_tpu_torch.config import EngineConfig, apply_decimal
 from nds_tpu_torch.engine.torch_backend.compiled import StatementAbandoned
 from nds_tpu_torch.obs import device_time
 from nds_tpu_torch.report import BenchReport
 from nds_tpu_torch.validate import table_mismatches
+from nds_tpu_torch.warehouse import Warehouse
 from torch_drivers_cases import (log_rows, make_data, output_table,
                                  property_file, stream)
 from torch_isolation import isolate_port_programs  # noqa: F401
@@ -174,7 +176,7 @@ def test_an_abandoned_statement_stops_before_its_next_device_work(paths):
 def test_unported_options_raise_naming_their_roadmap_item(paths, tmp_path,
                                                           case):
     item = {"explain": "A.5", "verify_plans": "A.5", "mesh_shards": "A.4",
-            "warehouse": "A.6", "maintenance": "A.6",
+            "warehouse": "A.6.2", "maintenance": "A.6.2",
             "datagen_hosts": "A.6", "datagen_update": "A.6"}[case]
     log = str(tmp_path / "time.csv")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -186,11 +188,13 @@ def test_unported_options_raise_naming_their_roadmap_item(paths, tmp_path,
             power.setup_tables(nt.Session(device="cpu"), paths["csv"],
                                "csv", maintenance=True)
         elif case == "warehouse":
-            os.makedirs(tmp_path / "wh" / "store_sales")
-            (tmp_path / "wh" / "store_sales" / "manifest.json").write_text(
-                "{}")
-            power.run_query_stream(str(tmp_path / "wh"), stream(paths), log,
-                                   device="cpu")
+            # the warehouse reads; its DML (Data Maintenance) is A.6.2
+            transcode.transcode(paths["csv"], str(tmp_path / "wh"),
+                                tables=["store"])
+            session = nt.Session(device="cpu")
+            session.attach_warehouse(Warehouse(str(tmp_path / "wh")))
+            assert session.sql("SELECT COUNT(*) AS n FROM store").num_rows
+            session.sql("INSERT INTO store SELECT * FROM store")
         else:
             kw = {"explain": {"explain": True},
                   "verify_plans": {"verify_plans": "final"},

@@ -9,7 +9,8 @@ At SF0.01: a warm power run (warmup 2, strict) records every query, then
 ``precompile_parallel`` captures every recorded unit's CUDA graph (all
 "compiled"), and every timed run replays one ("compiled"), equal to the
 numpy power run; a query over its deadline on the card records Failed
-while the next query runs, bit-identical to its run without the overrun;
+while the next query runs, bit-identical to its run without the overrun
+(over a warehouse transcoded with --use_decimal);
 and two process-mode streams share the card, each process with a CUDA
 context of its own, their outputs equal to numpy runs of the same streams.
 At SF0.5, a warm power run of all 103 units after a cold one in the same
@@ -24,7 +25,8 @@ import os
 import pytest
 import torch
 
-from nds_tpu_torch import datagen, power, resilience, streams, throughput
+from nds_tpu_torch import (datagen, power, resilience, streams, throughput,
+                           transcode)
 from nds_tpu_torch.engine.torch_backend import cuda_kernels as ck
 from nds_tpu_torch.validate import table_mismatches
 from torch_drivers_cases import RNGSEED, output_table, property_file
@@ -92,14 +94,22 @@ def test_warm_power_run_replays_graphs_on_every_timed_run(data, capsys):
 
 def test_a_deadline_overrun_on_the_card_leaves_the_next_query_running(
         data, tmp_path):
+    """Over a --use_decimal warehouse, so that the two runs' results
+    can be held bit for bit (a float sum's order on the card is not
+    fixed, and the CSV's decimals read as doubles); unpartitioned, so
+    that query42's first run loads one file a table, well inside its
+    deadline."""
+    wh = str(tmp_path / "wh")
+    transcode.transcode(str(data / "csv"), wh, use_decimal=True,
+                        tables=["date_dim", "item", "store_sales"],
+                        partition=False)
     props = property_file(str(tmp_path), "slow",
                           fault_points="jax.execute:delay:3#1")
     sub = ["query3", "query42"]
     log = str(tmp_path / "time.csv")
     try:
-        power.run_query_stream(str(data / "csv"),
-                               str(data / "streams" / "query_0.sql"), log,
-                               input_format="csv", sub_queries=sub,
+        power.run_query_stream(wh, str(data / "streams" / "query_0.sql"),
+                               log, sub_queries=sub,
                                property_file=props, query_timeout=1.0,
                                output_prefix=str(tmp_path / "out"),
                                json_summary_folder=str(tmp_path / "json"))
@@ -113,10 +123,9 @@ def test_a_deadline_overrun_on_the_card_leaves_the_next_query_running(
     assert "DeadlineExceeded" in statuses["query3"]["exceptions"][0]
     assert statuses["query42"]["queryStatus"] == ["Completed"]
     # the same query without the overrun, on a session of its own
-    power.run_query_stream(str(data / "csv"),
-                           str(data / "streams" / "query_0.sql"),
+    power.run_query_stream(wh, str(data / "streams" / "query_0.sql"),
                            str(tmp_path / "time_clean.csv"),
-                           input_format="csv", sub_queries=["query42"],
+                           sub_queries=["query42"],
                            output_prefix=str(tmp_path / "clean"))
     got = output_table(str(tmp_path / "out"), "query42")
     want = output_table(str(tmp_path / "clean"), "query42")

@@ -8,9 +8,10 @@ result is held against nds_tpu's ``backend="jax"`` result (Pallas off;
 the XLA lowering is bit-identical to it) and its ``backend="numpy"``
 result: integer, date and decimal columns bit-identical, float columns to
 rtol 1e-9. Also here: the port imports neither jax nor nds_tpu (while
-it runs the star query in-core and streamed, a window query and a set
-operation, and the query service's batched dispatch, and imports the
-benchmark drivers), and it never runs on the CPU unless asked to.
+it runs the star query in-core, streamed and streamed over an attached
+warehouse, a window query and a set operation, and the query service's
+batched dispatch, and imports the benchmark drivers), and it never runs
+on the CPU unless asked to.
 """
 import os
 import subprocess
@@ -163,6 +164,18 @@ for _ in range(2):
     assert table_mismatches(s.sql(sys.argv[1]), star_table) == []
     assert s.last_stats["mode"] == "streamed" and not s.last_fallbacks
     assert s.last_stats["morsels"] == 4
+# the same over the Load Test's warehouse, attached (manifest stats)
+from nds_tpu_torch import transcode
+from nds_tpu_torch.warehouse import Warehouse
+wh = Warehouse(tempfile.mkdtemp())
+wh.table("fact").create(fact, partition=False)
+wh.table("dim").create(dim, partition=False)
+s = nt.Session(nt.EngineConfig(out_of_core_min_rows=4096, chunk_rows=2048),
+               device="cpu")
+s.attach_warehouse(Warehouse(wh.root))
+assert table_mismatches(s.sql(sys.argv[1]), star_table) == []
+assert s.last_stats["mode"] == "streamed" and s.last_stats["lane_spec"]
+assert callable(transcode.main)
 print("GUARD_OK", sorted(m for m in sys.modules
                          if m.split(".")[0] in ("jax", "jaxlib", "nds_tpu")
                          and sys.modules[m] is not None))
