@@ -11,6 +11,7 @@ Phases, one JSON line each:
    native data generator built beside them);
 2. data: NDS tables generated at --sf by the native generator into a
    temporary directory and registered from CSV, decimals as exact int64;
+   refresh set 1 at --sf beside them, timed apart;
 2b. load: the Load Test, nds_tpu_torch.transcode.transcode over every
    SF10 table, before any other work runs beside it: the generated CSV
    into the snapshot warehouse in the temporary directory, decimals
@@ -94,19 +95,21 @@ Phases, one JSON line each:
    rows, 261 date partitions): q21, q22, q37, q72 and q82 must stream it,
    32 morsels a pass,
    and q39's two parts (no streaming job) run in-core over the whole
-   table; each unit cold and twice warm (a third warm pass is cut),
-   held against the numpy
+   table; each unit cold and once warm (a second and a third warm pass
+   are cut), held against the numpy
    executor, which runs in two forked workers beside this phase and the
    ones after (q72's alone takes about 6 minutes), the checks at the end;
-3e. stream_plain: q22 and q82 as in 3d but with ``narrow_lanes=False``
+3e. stream_plain: q22 (q82 is cut) as in 3d but with
+   ``narrow_lanes=False``
    (the plain slot: int64 data, a byte of validity a row), cold and once
    warm, then packed again the same way (beside the same host load),
    held against 3d's oracle results; a line sets their bytes uploaded,
    staging and decode times and warm walls beside both packed runs', and
    the plain runs must upload more bytes;
-3f. stream_lowered: phase query's queries with the threshold at 10M rows:
-   all but 12, 38 and 87 stream store_sales (7 morsels a pass, from
-   about 1,800 files) or catalog_sales (4), cold only (its warm pass is
+3f. stream_lowered: phase query's queries but 12, 38 and 87 (which run
+   in-core there: cut) with the threshold at 10M rows: each streams
+   store_sales (7 morsels a pass, from about 1,800 files) or
+   catalog_sales (4), cold only (its warm pass is
    cut: the phase's queries replay in phase replay already), held
    against phase query's oracle results and phase replay's in-core
    results. Both streamed phases fail
@@ -119,6 +122,43 @@ Phases, one JSON line each:
    decode sites). With narrow_lanes on, every streamed table must ride
    packed lanes. Launch counters zeroed just before each, read just
    after;
+3g. maintenance: the Data Maintenance Test over the Load Test's
+   warehouse, on the card. The Load Test's state is published as a
+   version first (the AS OF point); then, in a new session,
+   nds_tpu_torch.maintenance.run_maintenance runs the 11 refresh
+   functions over refresh set 1 (generated in phase data at --sf), the
+   LF_* then the DF_* (three delete-date windows each), one warehouse
+   transaction each: the INSERT bodies on the card, the DELETE
+   predicates on the host numpy executor. It reports the Maintenance
+   Test Time and each function's ms and variants; per table the rows
+   inserted and deleted, the files read, written, dropped and pruned (by
+   partition and by stats), the manifests' bytes and seconds written and
+   the seconds in register_all and in the warehouse's steps; each
+   INSERT body's device time (CUDA events on its executor's stream, from
+   its first work to its last) and wall; the versions before and after.
+   Then, on
+   the same session, pinned to the new version: queries 3, 42, 55 and 96
+   cold (eager), then recorded, or adopted from phase power's shared
+   programs (a ReplayMismatch is reported), and replayed as graphs; and
+   q42 streamed at the 10M-row threshold, its lane_spec and enc_spec
+   beside stream_lowered's and the stats taken from the data named.
+   Forked processes compute the numpy side beside the reads and the
+   phases after (none beside the timed functions), and the checks against
+   it run at the end. The phase fails on
+   a host fallback, an LF_* function's inserted rows other than numpy's
+   for its query over the staging tables AS OF the Load Test's version
+   (as multisets: integers and decimals bit-identical, floats to rtol
+   1e-9; and all of them in its new files), a fact table whose rows
+   after are not its rows before plus the
+   rows inserted less the rows the DF_* predicates match (numpy, AS OF
+   the version before each function), a published version count other
+   than one a function, an AS OF row count other than phase load's, a
+   read other than numpy's over the new version, a lifecycle fault, and
+   a column stat read from the data where the manifest holds it (the
+   reference's rule), and on a join kernel (sort_pairs, take_many) that
+   the functions or the reads never launched. Launch counters zeroed
+   just before the functions and again before the reads, read just after
+   each;
 4. spare slot: the first-row-per-group scatter at the largest call that
    queries 38 and 87 made, beside the reference's form of it (every row
    outside the mask on one spare slot), bit-identical;
@@ -148,9 +188,11 @@ Phases, one JSON line each:
    Times and both elapsed times. Counters zeroed just before the cold
    run, read just after the warm one.
 
-Then the deferred oracle checks of phase stream_default, the kernel table
+Then the deferred oracle checks of phases stream_default and maintenance,
+the kernel table
 as one JSON line (a row's launches: the phases query, service, power,
-templates and the streamed phases') and, last, the device line. Any
+maintenance, templates and the streamed phases') and, last, the device
+line. Any
 failure raises and exits non-zero; without CUDA the run stops at once.
 """
 from __future__ import annotations
@@ -375,19 +417,34 @@ def phase_card_build(ck) -> str:
 
 
 def phase_data(nt, sf: float, tmp: str, device: str = "cuda",
-               name: str = "data"):
+               name: str = "data", refresh: bool = False):
+    """The NDS tables at `sf` under tmp/<name>, registered from CSV on a
+    new session; with `refresh`, refresh set 1 at `sf` too, under
+    tmp/refresh, timed apart (one generator process: each writes the
+    set's three delete-date tuples)."""
     from nds_tpu_torch import datagen
     data = os.path.join(tmp, name)
     t0 = time.perf_counter()
     datagen.generate(data, sf, parallel=len(os.sched_getaffinity(0)))
     gen_s = time.perf_counter() - t0
+    extra = {}
+    if refresh:
+        upd = os.path.join(tmp, "refresh")
+        t0 = time.perf_counter()
+        datagen.generate(upd, sf, parallel=1, update=1)
+        extra = {"refresh_generate_s": time.perf_counter() - t0,
+                 "refresh_csv_bytes": _tree_bytes(upd)}
     session = nt.Session(nt.EngineConfig(decimal_physical="i64"),
                          device=device)
     names = datagen.setup_tables(session, data, use_decimal=True)
     emit(name, sf=sf, generate_s=gen_s, tables=len(names),
-         csv_bytes=sum(os.path.getsize(os.path.join(r, f))
-                       for r, _, fs in os.walk(data) for f in fs))
+         csv_bytes=_tree_bytes(data), **extra)
     return session
+
+
+def _tree_bytes(root: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(root) for f in fs)
 
 
 _FORKED: dict = {}
@@ -1118,39 +1175,45 @@ MORSELS = {"inventory": 32, "store_sales": 7, "catalog_sales": 4}
 #: the SF10 units that scan inventory: five stream it at the default
 #: settings, and q39's two parts find no streaming job and run in-core
 STREAM_DEFAULT = ("query21", "query22", "query37", "query72", "query82")
-#: the units phase stream_plain runs again with narrow_lanes off
-STREAM_PLAIN = ("query22", "query82")
+#: the units phase stream_plain runs again with narrow_lanes off (q82 is
+#: cut, the smoke's fourth cut, for phase maintenance)
+STREAM_PLAIN = ("query22",)
 INCORE_DEFAULT = ("query39_part1", "query39_part2")
 #: the threshold of phase stream_lowered, over which store_sales (28.8M
 #: rows at SF10) and catalog_sales (14.4M) stream too, but not web_sales
 #: (7.2M); of QUERIES, 12 (web_sales only), 38 and 87 find no streaming
-#: job and run in-core
+#: job and run in-core, and are left out (the smoke's fifth cut, for
+#: phase maintenance): the phase keeps the units that stream store_sales
+#: and q2, which streams catalog_sales
 LOWERED_MIN_ROWS = 10_000_000
 INCORE_LOWERED = ("query12", "query38", "query87")
-#: warm runs of each unit after its cold run: two in stream_default,
-#: none in stream_lowered (the smoke's two cuts, in this order, so that
-#: it keeps to its time with the Load Test in it: stream_lowered's 14
-#: queries replay in phase replay already, and a third warm pass of
-#: stream_default's units repeated the second)
-WARM_PASSES = 2
+#: warm runs of each unit after its cold run: one in stream_default,
+#: none in stream_lowered (the smoke's cuts, in this order: for the Load
+#: Test, stream_lowered's warm pass, whose 14 queries replay in phase
+#: replay already, and stream_default's third warm pass, which repeated
+#: the second; for phase maintenance, stream_default's second)
+WARM_PASSES = 1
 WARM_PASSES_LOWERED = 0
 
 
-def phase_load(tmp: str, name: str = "data") -> str:
+def phase_load(tmp: str, name: str = "data") -> tuple:
     """The Load Test: nds_tpu_torch.transcode over every table of the
     generated CSV into a warehouse, decimals exact, fact tables
-    partitioned. Returns the warehouse's root."""
+    partitioned. Returns the warehouse's root and each table's rows (as
+    parsed)."""
     from nds_tpu_torch import transcode, warehouse
     wh = os.path.join(tmp, "warehouse")
     report = os.path.join(tmp, "load_report.txt")
     # each table's CSV parse and manifest commit, timed apart
     parts: dict = {"csv_s": {}, "commit_s": {}}
+    rows: dict = {}
     load_csv, commit = transcode.load_csv, warehouse.WarehouseTable._commit
 
     def timed_load(path, schema):
         t = time.perf_counter()
         out = load_csv(path, schema)
         parts["csv_s"][os.path.basename(path)] = time.perf_counter() - t
+        rows[os.path.basename(path)] = out.num_rows
         return out
 
     def timed_commit(wt, files):
@@ -1184,10 +1247,10 @@ def phase_load(tmp: str, name: str = "data") -> str:
          # whichever writer process took them; the spills' seconds
          stats_s=writers.seconds["stats"], write_s=writers.seconds["write"],
          spill_s=writers.seconds["spill"], write_procs=writers.procs,
-         **parts)
+         rows=rows, **parts)
     if len(times) != 24:
         raise SystemExit(f"load: {len(times)} tables, not 24")
-    return wh
+    return wh, rows
 
 
 class StatsReads:
@@ -1515,20 +1578,22 @@ def phase_stream_plain(session, ck, default: dict) -> dict:
 
 def phase_stream_lowered(session, ck, oracle, replay: dict,
                          scale: float = 1.0) -> dict:
-    """QUERIES with the threshold at LOWERED_MIN_ROWS: every one but
-    INCORE_LOWERED streams store_sales or catalog_sales, held against
-    phase query's oracle and phase replay's in-core results."""
+    """QUERIES but INCORE_LOWERED with the threshold at LOWERED_MIN_ROWS:
+    each streams store_sales or catalog_sales, held against phase
+    query's oracle and phase replay's in-core results."""
     cfg = session.config
     cfg.out_of_core_min_rows = int(LOWERED_MIN_ROWS * scale)
     cfg.chunk_rows = max(1024, int((1 << 22) * scale))
-    units = query_units()
-    streamed = tuple(n for n, _ in units if n not in INCORE_LOWERED)
-    totals, captured, *_ = run_stream_units(
-        session, ck, units, "stream_lowered", streamed, oracle=oracle,
+    units, oracle = zip(*[(u, o) for u, o in zip(query_units(), oracle)
+                          if u[0] not in INCORE_LOWERED])
+    streamed = tuple(n for n, _ in units)
+    totals, captured, _, _, fields = run_stream_units(
+        session, ck, list(units), "stream_lowered", streamed,
+        oracle=list(oracle),
         incore=replay["results"], incore_walls=replay["walls"],
         warm=WARM_PASSES_LOWERED, morsels=MORSELS if scale == 1 else None)
     emit("stream_lowered_launches", totals=totals, captured=captured)
-    return {"totals": totals, "captured": captured}
+    return {"totals": totals, "captured": captured, "fields": fields}
 
 
 def finish_streamed(streamed: dict) -> None:
@@ -1543,6 +1608,593 @@ def finish_streamed(streamed: dict) -> None:
             st.pop("finish")()
     emit("streamed_captured_launches", **{
         ph: st["captured"] for ph, st in streamed.items()})
+
+
+# ---------------------------------------------------------------------------
+# Data Maintenance over the Load Test's warehouse
+# ---------------------------------------------------------------------------
+
+#: the queries read over the warehouse after maintenance: cold, then
+#: recorded (or adopted) and replayed; MAINT_STREAMED streams at
+#: LOWERED_MIN_ROWS too
+MAINT_QUERIES = (3, 42, 55, 96)
+#: the tables the refresh functions write
+FACT_TABLES = ("catalog_returns", "catalog_sales", "inventory",
+               "store_returns", "store_sales", "web_returns", "web_sales")
+MAINT_STREAMED = "query42"
+#: the kernels the INSERT bodies (joins, no aggregate) and the reads after
+#: maintenance (joins and group-by sorts; no global aggregate, where the
+#: segment reduction runs) must launch
+MAINT_KERNELS = ("sort_pairs", "take_many")
+
+
+class MaintenanceProbe:
+    """While entered, counts per table what the refresh functions did to
+    the warehouse: rows inserted and deleted (each DELETE batch's rows
+    and the rows its keep filter dropped), files read, written and
+    dropped, files pruned by partition and by stats, the bytes and
+    seconds of every JSON written (manifests, and under "_snapshots" the
+    transactions' records), the seconds in ``register_all`` and in the
+    steps of ``seconds``, and each statement query on the device path
+    (rows, wall, fallbacks). The functions run unchanged."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.tables: dict = {}
+        self.json: dict = {}
+        self.register_all = {"calls": 0, "s": 0.0}
+        self.bodies: list = []
+        #: (table, the Arrow table) of each INSERT, in order
+        self.inserts: list = []
+        #: seconds in the warehouse's and the session's steps (__enter__)
+        self.seconds: dict = {}
+        self.restore: list = []
+
+    def _t(self, name: str) -> dict:
+        return self.tables.setdefault(name, {
+            "rows_inserted": 0, "rows_deleted": 0, "rows_read": 0,
+            "files_read": 0, "files_written": 0, "files_dropped": 0,
+            "pruned_partition": 0, "pruned_stats": 0})
+
+    def __enter__(self):
+        import threading
+
+        import pyarrow as pa
+        import pyarrow.compute as pc
+
+        from nds_tpu_torch import warehouse as W
+        from nds_tpu_torch.engine.session import Session
+        probe = self
+        lock = threading.Lock()
+        self.orig = {"insert": W.WarehouseTable.insert,
+                     "delete_where": W.WarehouseTable.delete_where,
+                     "_read_file": W._read_file,
+                     "_atomic_write_json": W._atomic_write_json,
+                     "register_all": W.Warehouse.register_all,
+                     "_run_query_ast": Session._run_query_ast}
+        o = self.orig
+
+        def insert(wt, table, partition=True):
+            before = set(wt.current_files())
+            out = o["insert"](wt, table, partition)
+            probe.inserts.append((wt.name, table))
+            t = probe._t(wt.name)
+            t["rows_inserted"] += table.num_rows
+            t["files_written"] += len(set(wt.current_files()) - before)
+            return out
+
+        def delete_where(wt, keep_filter, batch_rows=4_000_000,
+                         part_prune=None, stats_prune=None):
+            t = probe._t(wt.name)
+            before = set(wt.current_files())
+
+            def keep(batch):
+                kept = pa.array(keep_filter(batch), type=pa.bool_())
+                t["rows_read"] += batch.num_rows
+                t["rows_deleted"] += batch.num_rows - (
+                    pc.sum(kept).as_py() or 0)
+                return kept
+
+            def counted(rule, key):
+                if rule is None:
+                    return None
+
+                def ask(arg):
+                    go = rule(arg)
+                    t[key] += not go
+                    return go
+                return ask
+            out = o["delete_where"](
+                wt, keep, batch_rows=batch_rows,
+                part_prune=counted(part_prune, "pruned_partition"),
+                stats_prune=counted(stats_prune, "pruned_stats"))
+            after = set(wt.current_files())
+            t["files_written"] += len(after - before)
+            t["files_dropped"] += len(before - after)
+            return out
+
+        def read_file(path):
+            rel = os.path.relpath(path, probe.root)
+            with lock:                  # (files are read on threads)
+                probe._t(rel.split(os.sep)[0])["files_read"] += 1
+            return o["_read_file"](path)
+
+        def write_json(path, doc, *text):
+            t0 = time.perf_counter()
+            out = o["_atomic_write_json"](path, doc, *text)
+            key = (os.path.basename(os.path.dirname(path))
+                   if os.path.basename(path) == "manifest.json"
+                   else "_snapshots")
+            j = probe.json.setdefault(key, {"writes": 0, "bytes": 0,
+                                            "s": 0.0})
+            j["writes"] += 1
+            j["bytes"] += os.path.getsize(path)
+            j["s"] += time.perf_counter() - t0
+            return out
+
+        def register_all(wh, session, *a, **k):
+            t0 = time.perf_counter()
+            out = o["register_all"](wh, session, *a, **k)
+            probe.register_all["calls"] += 1
+            probe.register_all["s"] += time.perf_counter() - t0
+            return out
+
+        def run_query_ast(session, ast, backend):
+            on_device = (backend or "torch") == "torch"
+            events = None
+            if on_device and session.device.type == "cuda":
+                # events on the executor's stream around the body: the
+                # device time from its first work to its last
+                import torch
+                stream = session._executor().stream
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record(stream)
+            t0 = time.perf_counter()
+            out = o["_run_query_ast"](session, ast, backend)
+            if on_device:
+                span = None
+                if events is not None:
+                    events[1].record(stream)
+                    events[1].synchronize()
+                    span = events[0].elapsed_time(events[1])
+                probe.bodies.append({
+                    "rows": out.num_rows,
+                    "wall_s": time.perf_counter() - t0,
+                    "device_span_ms": span,
+                    "fallbacks": list(session.last_fallbacks)})
+            return out
+        for owner, attr, fn in (
+                (W.WarehouseTable, "insert", insert),
+                (W.WarehouseTable, "delete_where", delete_where),
+                (W, "_read_file", read_file),
+                (W, "_atomic_write_json", write_json),
+                (W.Warehouse, "register_all", register_all),
+                (Session, "_run_query_ast", run_query_ast)):
+            self._patch(owner, attr, fn)
+        # the seconds spent in each of these, summed (nested ones apart)
+        for owner, attr in ((W.WarehouseTable, "insert"),
+                            (W.FileWriters, "write"),
+                            (W.WarehouseTable, "delete_where"),
+                            (W.WarehouseTable, "_load_doc"),
+                            (W.WarehouseTable, "_commit"),
+                            (Session, "_stats_prune"),
+                            (Session, "_partition_prune")):
+            self._patch(owner, attr, self._timed(attr, getattr(owner, attr)))
+        return self
+
+    def _patch(self, owner, attr, fn) -> None:
+        self.restore.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, fn)
+
+    def _timed(self, key: str, fn):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.seconds[key] = self.seconds.get(key, 0.0) + \
+                    time.perf_counter() - t0
+        return timed
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in reversed(self.restore):
+            setattr(owner, attr, fn)
+        return False
+
+
+def fork_call(fn, *args):
+    """fn(*args) in a process forked from this one, which goes on
+    meanwhile (the child never touches the card); returns a function that
+    waits for the child and returns fn's result."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+
+    def child():
+        try:
+            send.send((True, fn(*args)))
+        except BaseException:
+            send.send((False, traceback.format_exc()))
+    proc = ctx.Process(target=child)
+    proc.start()
+    send.close()
+
+    def wait():
+        ok, out = recv.recv()
+        proc.join()
+        if not ok:
+            raise SystemExit(f"{fn.__name__} failed: {out}")
+        return out
+    return wait
+
+
+def _pinned(nt, wh: str, version: int):
+    """A host session (numpy only) over the warehouse AS OF `version`."""
+    from nds_tpu_torch.warehouse import Warehouse
+    s = nt.Session(nt.EngineConfig(decimal_physical="i64"), device="cpu")
+    s.attach_warehouse(Warehouse(wh), at_version=version)
+    return s
+
+
+def _insert_query(sql: str) -> tuple:
+    """(target table, the function's statements with its INSERT replaced
+    by the INSERT's query): what the function would append."""
+    import re
+    m = re.search(r"INSERT\s+INTO\s+(\w+)\s+", sql, re.IGNORECASE)
+    return m.group(1), sql[:m.start()] + sql[m.end():]
+
+
+def _lf_oracle(nt, wh: str, upd: str, version: int) -> dict:
+    """In a forked process, AS OF `version` (the Load Test's): each
+    table's rows (the footers of its files there), store_sales' COUNT(*)
+    by the numpy executor, and each LF_* function's rows as the numpy
+    executor computes them over the staging tables, as Arrow tables in
+    the target's names."""
+    from nds_tpu_torch import maintenance
+    from nds_tpu_torch.engine.arrow_bridge import to_arrow
+    s = _pinned(nt, wh, version)
+    rows = dict(s._est_rows)
+    count = s.sql("SELECT COUNT(*) AS n FROM store_sales",
+                  backend="numpy").columns[0].data.tolist()[0]
+    maintenance.register_staging(s, upd)
+    out = {}
+    for func in maintenance.INSERT_FUNCS:
+        target, sql = _insert_query(maintenance.load_function_sql(func))
+        got = s.execute(sql, backend="numpy")
+        out[func] = (target, to_arrow(got).rename_columns(
+            s._schemas[target][0]))
+    return {"rows": rows, "store_sales_count": int(count), "lf": out}
+
+
+def _df_counts(nt, wh: str, jobs: list) -> dict:
+    """In a forked process, for each (DF_* function, the version before
+    it, its statement sets) of `jobs`, AS OF that version: per target
+    table, the rows each of the function's DELETE predicates matches by
+    the numpy executor, summed over the variants (their date windows are
+    disjoint)."""
+    import re
+    out: dict = {}
+    for func, version, variants in jobs:
+        s = _pinned(nt, wh, version)
+        matched = out[func] = {}
+        for stmt in dict.fromkeys(st for text in variants
+                                  for st in text.split(";")):
+            m = re.match(r"\s*DELETE\s+FROM\s+(\w+)\s+WHERE\s+(.*)$",
+                         stmt, re.IGNORECASE | re.DOTALL)
+            if m is None:
+                continue
+            n = s.sql(f"SELECT COUNT(*) AS n FROM {m.group(1)} WHERE "
+                      f"{m.group(2)}", backend="numpy")
+            matched[m.group(1)] = matched.get(m.group(1), 0) + \
+                int(n.columns[0].data.tolist()[0])
+    return out
+
+
+def _numpy_results(session, sqls: list) -> list:
+    """In a forked process: [(the numpy executor's result, seconds)] of
+    each of `sqls` on `session`."""
+    _FORKED["session"] = session
+    return [_oracle(sql) for sql in sqls]
+
+
+def _test_module(name: str):
+    """tests/<name>.py, the helpers the tests share, loaded by its path (a
+    package named ``tests`` elsewhere on sys.path may shadow this
+    repository's)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _maint_read_faults(name: str, stats: list) -> list:
+    """A read's compiled runs after maintenance: the first records, or
+    adopts a program recorded before it (then every later run replays);
+    a recorded one goes compile+run (or compiled), compiled..."""
+    modes = [st.get("mode") for st in stats]
+    if modes[0] == "adopted":
+        ok = all(m == "compiled" for m in modes[1:])
+    else:
+        ok = modes[0] == "record" and \
+            modes[1] in ("compile+run", "compiled") and \
+            all(m == "compiled" for m in modes[2:])
+    return [] if ok else [f"{name}: modes {modes} follow no lifecycle"]
+
+
+def phase_maintenance(nt, ck, wh: str, upd: str, load_rows: dict,
+                      lowered: dict, scale: float = 1.0,
+                      device: str = "cuda") -> dict:
+    """The Maintenance Test over the Load Test's warehouse, on the card:
+    the Load Test's state is published as a version first (its AS OF
+    point), then maintenance.run_maintenance runs the 11 refresh
+    functions in the reference's order, one transaction each, in a new
+    session (the INSERT bodies on the card, the DELETE predicates on the
+    host). Then, on the same session, pinned to the new version: queries
+    MAINT_QUERIES cold (eager), then recorded or adopted (the shared
+    programs as phase power left them: a schedule recorded over the old
+    version may be offered) and replayed as graphs; and MAINT_STREAMED
+    streamed at LOWERED_MIN_ROWS over the inserted files too. Forked
+    processes compute the numpy side beside the reads and the phases
+    after this one (none runs beside the timed functions): each LF_*
+    function's rows and every table's rows AS OF the Load Test's version,
+    each DF_* function's matched rows AS OF the version before it, and the
+    reads' oracle over the new version; the returned ``finish`` holds the
+    phase's results against them. Fails on a host fallback, an INSERT's rows other than
+    numpy's or not all in its new files, a row count that does not add
+    up, a published
+    version count other than one a function, an AS OF count other than
+    phase load's, a read other than numpy's, a lifecycle fault, a
+    column stat read from the data where the manifest has it, and a
+    kernel of MAINT_KERNELS either path never launched. Launch counters
+    zeroed just before each of the two paths (the functions; the reads),
+    read just after."""
+    import torch
+
+    from nds_tpu_torch import maintenance, streams
+    from nds_tpu_torch.engine import arrow_bridge
+    from nds_tpu_torch.validate import table_mismatches
+    from nds_tpu_torch.warehouse import Warehouse
+    t_phase = time.perf_counter()
+    setup: dict = {}
+    W = Warehouse(wh)
+    with W.transaction(committer="load"):
+        pass                    # the Load Test's state, published
+    v_before = W.current_version()
+    setup["publish_s"] = time.perf_counter() - t_phase
+    session = nt.Session(nt.EngineConfig(decimal_physical="i64"),
+                         device=device)
+    probe = MaintenanceProbe(wh)
+    log = os.path.join(os.path.dirname(wh), "maintenance.csv")
+    on_card = device == "cuda"
+    ck.reset_launches()                 # the path starts here
+    with probe:
+        t0 = time.perf_counter()
+        rows = maintenance.run_maintenance(wh, upd, log, session=session)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    insert_totals = dict(ck.LAUNCHES)   # read just after the path
+    with open(log) as f:
+        test_ms = [ln.split(",") for ln in f.read().splitlines()][-1][3]
+    # (the session's own Warehouse keeps the manifests it wrote decoded)
+    W = session.warehouse
+    v_after = W.current_version()
+    failed = []
+    records = [W.version_record(v) for v in range(v_before + 1,
+                                                  v_after + 1)]
+    if [r["committer"] for r in records] != maintenance.MAINTENANCE_FUNCS:
+        failed.append(f"maintenance: versions {v_before}..{v_after} "
+                      f"published by {[r['committer'] for r in records]}")
+    ran = session.warehouse_version(), [r[0] for r in rows]
+    if ran != (v_after, maintenance.MAINTENANCE_FUNCS):
+        failed.append(f"maintenance: session at version {ran[0]} after "
+                      f"{ran[1]}")
+    for b in probe.bodies:
+        if b["fallbacks"]:
+            failed.append(f"maintenance: an INSERT body fell back to the "
+                          f"host: {b['fallbacks']}")
+    missing = [k for k in MAINT_KERNELS if insert_totals[k] == 0]
+    if missing and on_card:            # (the CPU launches no kernel)
+        failed.append(f"maintenance: kernels never launched: {missing}")
+    emit("maintenance", maintenance_test_ms=int(test_ms), wall_s=wall,
+         function_ms={r[0]: r[3] for r in rows},
+         variants={f: len(maintenance.function_variants(
+             f, *maintenance.get_delete_date(upd)))
+             for f in maintenance.MAINTENANCE_FUNCS},
+         tables=probe.tables, json_writes=probe.json,
+         register_all=probe.register_all, step_s=probe.seconds,
+         insert_bodies=probe.bodies,
+         insert_device_span_ms=sum(b["device_span_ms"] or 0.0
+                                   for b in probe.bodies),
+         versions=[v_before, v_after], launches=insert_totals,
+         setup_s=setup)
+
+    # the numpy side, forked beside the reads (none beside the timed
+    # functions): the LF_* functions' rows, each DF_* function's matched
+    # rows, then the reads' oracle after their cold runs
+    dates = maintenance.get_delete_date(upd)
+    jobs = [(f, v_before + maintenance.MAINTENANCE_FUNCS.index(f),
+             maintenance.function_variants(f, *dates))
+            for f in ("DF_SS", "DF_WS", "DF_CS", "DF_I")]
+    t0 = time.perf_counter()
+    lf = fork_call(_lf_oracle, nt, wh, upd, v_before)
+    df = [fork_call(_df_counts, nt, wh, [job]) for job in jobs]
+    setup["reads_fork_s"] = time.perf_counter() - t0
+    # the reads over the new version, on the maintenance session
+    units = [(f"query{q}", streams.instantiate(q, stream=0, rngseed=SEED))
+             for q in MAINT_QUERIES]
+    reads, reads_failed = {}, []
+    reads_t0 = time.perf_counter()
+    ck.reset_launches()                 # the path starts here
+    for name, sql in units:
+        reads[name] = [_sql_run(session, sql, False)]
+    oracle = fork_call(_numpy_results, session, [sql for _, sql in units])
+    for name, sql in units:
+        comp = [_sql_run(session, sql, True) for _ in range(2 + REPLAYS)]
+        reads[name] += comp
+        reads_failed += _maint_read_faults(name, [r[2] for r in comp])
+    cfg, default = session.config, nt.EngineConfig()
+    cfg.out_of_core_min_rows = int(LOWERED_MIN_ROWS * scale)
+    cfg.chunk_rows = max(1024, int((1 << 22) * scale))
+    stats = StatsReads()
+    try:
+        with stats:
+            streamed = _sql_run(session, dict(units)[MAINT_STREAMED], True)
+    finally:
+        cfg.out_of_core_min_rows = default.out_of_core_min_rows
+        cfg.chunk_rows = default.chunk_rows
+    read_totals = dict(ck.LAUNCHES)     # read just after the path
+    reads_s = time.perf_counter() - reads_t0
+    for name, runs in reads.items():
+        for r in runs:
+            if r[2]["fallbacks"]:
+                reads_failed.append(f"{name}: host fallback "
+                                    f"{r[2]['fallbacks']}")
+    st = streamed[2]
+    if st.get("mode") != "streamed" or st["fallbacks"] or \
+            st.get("prefetch_error_details"):
+        reads_failed.append(f"{MAINT_STREAMED} at the lowered threshold: "
+                            f"{st.get('mode')}, fallbacks {st['fallbacks']}"
+                            f", {st.get('stream_refused')}")
+    elif scale == 1 and st["morsels_per_table"] != {
+            "store_sales": MORSELS["store_sales"]}:
+        reads_failed.append(f"{MAINT_STREAMED}: morsels "
+                            f"{st['morsels_per_table']}")
+    missing = [k for k in MAINT_KERNELS if read_totals[k] == 0]
+    if missing and on_card:
+        reads_failed.append(f"reads: kernels never launched: {missing}")
+    # which encoding stats of store_sales came from the data: the reference
+    # takes from the data exactly those a file's manifest entry lacks
+    wt = W.table("store_sales")
+    files = wt.files_at_version(session.table_snapshot_version(
+        "store_sales"))
+    manifest = wt.column_enc_stats(files)
+    schema = session._schemas["store_sales"]
+    enc_types = {n for n, d in zip(*schema)
+                 if d in ("int", "date") or d.startswith("dec")}
+    from_data = sorted(c for c in session._enc_stats.get("store_sales", {})
+                       if c not in manifest and c in enc_types)
+    if stats.calls["column_enc_stat"] > len(from_data) or \
+            stats.calls["parquet_column_stats"]:
+        reads_failed.append(f"{MAINT_STREAMED}: stats read from the data "
+                            f"{stats.calls}, where the manifest lacks only "
+                            f"{from_data}")
+
+    low = lowered.get("fields", {}).get(MAINT_STREAMED, {})
+    emit("maintenance_reads", seconds=reads_s,
+         fork_s=setup["reads_fork_s"],
+         units={name: {
+             "cold_s": runs[0][1],
+             "modes": [r[2].get("mode") for r in runs[1:]],
+             "replay_mismatch": [r[2].get("replay_mismatch")
+                                 for r in runs[1:]
+                                 if r[2].get("replay_mismatch")],
+             "record_s": runs[1][1],
+             "replay_s": _median(r[1] for r in runs[3:]),
+             "graph_ms": _median(r[2].get("graph_ms", 0.0)
+                                 for r in runs[3:]),
+             "rows": runs[-1][0].num_rows}
+             for name, runs in reads.items()},
+         streamed={"unit": MAINT_STREAMED, "s": streamed[1],
+                   "morsels_per_table": st.get("morsels_per_table"),
+                   "lane_spec": st.get("lane_spec"),
+                   "enc_spec": st.get("enc_spec"),
+                   "stream_lowered_lane_spec": low.get("lane_spec"),
+                   "stream_lowered_enc_spec": low.get("enc_spec"),
+                   "stats_from_data": from_data,
+                   "stats_reads": stats.calls},
+         launches=read_totals)
+    failed += reads_failed
+    if failed:
+        raise SystemExit("maintenance: " + "\n".join(failed))
+    del session
+    inserts = probe.inserts
+
+    def finish() -> None:
+        """The checks against the numpy side, whose processes run beside
+        the phases after this one."""
+        t_wait = time.perf_counter()
+        want = oracle()
+        lfo = lf()
+        dfo = {f: n for wait in df for f, n in wait().items()}
+        waited_s = time.perf_counter() - t_wait
+        bad = []
+        for (name, _), (w, _s) in zip(units, want):
+            for i, r in enumerate(reads[name]):
+                mm = table_mismatches(r[0], w)
+                if mm:
+                    bad.append(f"{name} (run {i}) disagrees with numpy "
+                               f"over the new version: {mm}")
+            if name == MAINT_STREAMED:
+                mm = table_mismatches(streamed[0], w)
+                if mm:
+                    bad.append(f"{name} streamed disagrees with numpy over "
+                               f"the new version: {mm}")
+        # AS OF the Load Test's version: phase load's counts
+        asof = {t: n for t, n in lfo["rows"].items()
+                if load_rows.get(t) != n}
+        if asof or lfo["store_sales_count"] != load_rows["store_sales"]:
+            bad.append(f"AS OF version {v_before}: rows {asof}, store_sales"
+                       f" COUNT(*) {lfo['store_sales_count']}, not phase "
+                       "load's")
+        # the inserted rows: numpy's, as multisets, and all in the new files
+        faults = _test_module("torch_drivers_cases").file_faults
+        inserted = {}
+        got_rows = iter(inserts)
+        for k, func in enumerate(maintenance.MAINTENANCE_FUNCS):
+            if func not in maintenance.INSERT_FUNCS:
+                continue
+            target, want_rows = lfo["lf"][func]
+            table, got = next(got_rows, (None, None))
+            t = W.table(target)
+            # the function published version v_before + k + 1
+            before = W.version_record(v_before + k)["tables"][target]
+            after = W.version_record(v_before + k + 1)["tables"][target]
+            new = sorted(set(t.files_at_version(after))
+                         - set(t.files_at_version(before)))
+            in_files = arrow_bridge.parquet_footers(new, immutable=True)[0]
+            inserted[func] = {"table": target, "rows": want_rows.num_rows,
+                              "files": len(new)}
+            faults_of = [f"inserted into {table}"] if table != target \
+                else faults(got, want_rows)
+            if in_files != want_rows.num_rows:
+                faults_of.append(f"{in_files} rows in its {len(new)} new "
+                                 "files")
+            if faults_of:
+                bad.append(f"{func}: inserted rows differ from numpy's: "
+                           f"{faults_of}")
+        # every table: its rows before, plus numpy's inserted, less
+        # numpy's matched, are its rows after
+        last = W.version_record(v_after)["tables"]
+        final = {name: arrow_bridge.parquet_footers(
+            W.table(name).files_at_version(last[name]), immutable=True)[0]
+            for name in FACT_TABLES}
+        expect = dict(load_rows)
+        for ins in inserted.values():
+            expect[ins["table"]] += ins["rows"]
+        matched: dict = {}
+        for func, out in dfo.items():
+            for table, n in out.items():
+                expect[table] -= n
+                matched.setdefault(table, {})[func] = n
+        wrong = {t: (final[t], expect[t]) for t in FACT_TABLES
+                 if final[t] != expect[t]}
+        if wrong:
+            bad.append(f"rows after != before + inserted - matched: "
+                       f"{wrong}")
+        emit("maintenance_checks", waited_s=waited_s,
+             oracle_s={name: w[1] for (name, _), w in zip(units, want)},
+             inserted=inserted, matched=matched, rows_after=final)
+        if bad:
+            raise SystemExit("maintenance: " + "\n".join(bad))
+    emit("maintenance_phase", seconds=time.perf_counter() - t_phase)
+    return {"totals": {k: insert_totals[k] + read_totals[k]
+                       for k in insert_totals},
+            "insert": insert_totals, "reads": read_totals, "finish": finish}
 
 
 def first_row_one_slot(gid, mask):
@@ -1975,19 +2627,6 @@ def phase_profile(session) -> None:
              host_cumulative_s=[[name, round(t, 4)] for t, name in host])
 
 
-def _test_inputs():
-    """tests/torch_inputs.py, the input makers the tests share, loaded by
-    its path (a package named ``tests`` elsewhere on sys.path may shadow
-    this repository's)."""
-    import importlib.util
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_inputs.py")
-    spec = importlib.util.spec_from_file_location("torch_inputs", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 #: the sort's tile (csrc/sort_pairs.cu kTile)
 SORT_TILE = 4096
 
@@ -2004,7 +2643,7 @@ def _edge_cases(torch, dev):
     gids, and the query path's grouped shape (4096 rows of 2 sums over
     S = 1024); bool and float gathers with clamped and wrapped indices."""
     import numpy as np
-    sort_keys = _test_inputs().sort_keys
+    sort_keys = _test_module("torch_inputs").sort_keys
     g = torch.Generator(device="cpu").manual_seed(7)
     rng = np.random.default_rng(7)
 
@@ -2346,8 +2985,8 @@ def main() -> int:
                          f"{torch.cuda.get_device_name(0)}")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        session = phase_data(nt, args.sf, tmp)
-        wh = phase_load(tmp)
+        session = phase_data(nt, args.sf, tmp, refresh=True)
+        wh, load_rows = phase_load(tmp)
         recorder = Recorder(ck)
         spare_labels = {f"query{q}" for q in SPARE_SLOT_QUERIES}
         recorder.wrap(kernels, "first_row_per_gid",
@@ -2385,6 +3024,11 @@ def main() -> int:
         replay.pop("results")
         gc.collect()
         torch.cuda.empty_cache()
+        maint = phase_maintenance(nt, ck, wh, os.path.join(tmp, "refresh"),
+                                  load_rows, streamed["stream_lowered"],
+                                  scale)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_spare_slot(recorder)
         emit("largest_inputs", calls=recorder.calls, **{
             k: {reg: f"{_shape(k, a)} from {callers}"
@@ -2394,23 +3038,26 @@ def main() -> int:
                              service, parents=parents)
         templates = phase_templates(nt, ck, args.templates_sf, tmp)
         finish_streamed(streamed)
+        maint.pop("finish")()
         for row in rows:
             row["stream_captured_launches"] = {
                 ph: st["captured"][row["name"]]
                 for ph, st in streamed.items()}
             row["power_launches"] = power["totals"][row["name"]]
+            row["maintenance_launches"] = maint["totals"][row["name"]]
             row["templates_launches"] = templates["totals"][row["name"]]
             row["launches"] += row["power_launches"] + \
-                row["templates_launches"]
+                row["maintenance_launches"] + row["templates_launches"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     # each row's "launches" counts the calls into the kernel's launch
     # entry in the main paths: the eager query phase, the streamed phases,
-    # the service phase and the drivers' phases power and templates (apart
-    # in "query_launches", "stream_launches", "service_launches",
-    # "power_launches" and "templates_launches");
+    # the service phase, the drivers' phases power and templates and the
+    # maintenance phase (apart in "query_launches", "stream_launches",
+    # "service_launches", "power_launches", "templates_launches" and
+    # "maintenance_launches");
     # "replay_launches" the replay phase's, and "captured_launches" those
     # of them made while a CUDA graph was captured: a graph's replays run
     # the kernel without calling its wrapper, so they add to no count

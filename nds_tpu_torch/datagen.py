@@ -1,18 +1,22 @@
 """NDS data for the port: drives the repository's native generator.
 
 Counterpart of the local path of ``nds_tpu/datagen.py``
-(``generate_data_local`` and its CLI's ``local`` mode, with ``--range``
-and ``--overwrite``): one generator process per chunk, then one directory
-per table. The generator is the C++ program in ``native/datagen/``; it is
-compiled with the host C++ compiler into ``nds_tpu_torch/_build/`` at
-first use (a few seconds), so the port needs no prebuilt binary.
-``setup_tables`` registers the generated tables with a port Session.
+(``generate_data_local`` and its CLI's ``local`` mode, with ``--range``,
+``--update`` and ``--overwrite``): one generator process per chunk, then
+one directory per table. ``--update K`` generates refresh set K, Data
+Maintenance's input: the staging tables and the delete-date tables
+(``MAINTENANCE_TABLES``) in place of the source tables. Each chunk writes
+the three delete-date tuples of the set, so a refresh set generated with
+``--parallel 1`` holds three. The generator is the C++ program in
+``native/datagen/``; it is compiled with the host C++ compiler into
+``nds_tpu_torch/_build/`` at first use (a few seconds), so the port needs
+no prebuilt binary. ``setup_tables`` registers the generated tables with a
+port Session.
 
     python -m nds_tpu_torch.datagen local DATA_DIR --scale 1 [--parallel N]
-        [--range FIRST,LAST] [--overwrite]
+        [--range FIRST,LAST] [--update K] [--overwrite]
 
-Not ported yet: the ``hosts`` mode (ssh fan-out) and ``--update`` refresh
-sets (Data Maintenance's input), both ROADMAP A.6.
+Not ported yet: the ``hosts`` mode (ssh fan-out), ROADMAP A.6.5.
 """
 from __future__ import annotations
 
@@ -29,6 +33,13 @@ _SRC = os.path.join(os.path.dirname(_PKG), "native", "datagen", "gen.cpp")
 _BUILD = os.path.join(_PKG, "_build")
 
 SOURCE_TABLES = sorted(get_schemas()) + ["dbgen_version"]
+#: a refresh set's tables, in the generator's order
+MAINTENANCE_TABLES = [
+    "s_purchase_lineitem", "s_purchase", "s_catalog_order", "s_web_order",
+    "s_catalog_order_lineitem", "s_web_order_lineitem", "s_store_returns",
+    "s_catalog_returns", "s_web_returns", "s_inventory", "delete",
+    "inventory_delete",
+]
 
 
 def build_generator() -> str:
@@ -69,11 +80,12 @@ def valid_range(r: str, parallel: int) -> tuple[int, int]:
 
 def generate(data_dir: str, scale: float, parallel: int,
              chunk_range: tuple[int, int] | None = None,
-             overwrite: bool = False) -> None:
+             overwrite: bool = False, update: int = 0) -> None:
     """Generate every source table at `scale` into data_dir/<table>/, with
-    one generator process per chunk. A whole run needs data_dir empty or
-    missing (``overwrite`` replaces it); a ``chunk_range`` run (first,
-    last) adds its chunks to a shared data_dir and never wipes it."""
+    one generator process per chunk (``update`` K > 0: refresh set K's
+    tables instead). A whole run needs data_dir empty or missing
+    (``overwrite`` replaces it); a ``chunk_range`` run (first, last) adds
+    its chunks to a shared data_dir and never wipes it."""
     binary = build_generator()
     first, last = chunk_range if chunk_range else (1, parallel)
     if chunk_range is None:
@@ -87,14 +99,17 @@ def generate(data_dir: str, scale: float, parallel: int,
         # a private work dir: range runs may share data_dir concurrently
         work = os.path.join(data_dir, f"_raw_{first}_{last}_")
     os.makedirs(work, exist_ok=True)
-    procs = [(child, subprocess.Popen(
-        [binary, "-scale", str(scale), "-dir", work, "-parallel",
-         str(parallel), "-child", str(child)]))
-        for child in range(first, last + 1)]
+    cmd = [binary, "-scale", str(scale), "-dir", work, "-parallel",
+           str(parallel)]
+    if update:
+        cmd += ["-update", str(update)]
+    procs = [(child, subprocess.Popen(cmd + ["-child", str(child)]))
+             for child in range(first, last + 1)]
     failed = [c for c, p in procs if p.wait() != 0]
     if failed:
         raise RuntimeError(f"generator chunks failed: {failed}")
-    for table in SOURCE_TABLES:
+    tables = MAINTENANCE_TABLES if update else SOURCE_TABLES
+    for table in tables:
         tdir = os.path.join(data_dir, table)
         os.makedirs(tdir, exist_ok=True)
         for child in range(first, last + 1):
@@ -108,7 +123,7 @@ def generate(data_dir: str, scale: float, parallel: int,
             raise RuntimeError(f"no output produced for table {table}")
     shutil.rmtree(work, ignore_errors=True)
     if chunk_range is not None and not any(
-            os.listdir(os.path.join(data_dir, t)) for t in SOURCE_TABLES):
+            os.listdir(os.path.join(data_dir, t)) for t in tables):
         raise RuntimeError(
             f"range {first},{last} produced no output for any table")
 
@@ -141,7 +156,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--range", dest="range_", default=None,
                    help="chunk subrange 'first,last' for incremental runs")
     p.add_argument("--update", type=int, default=0,
-                   help="refresh (maintenance) set K (not ported)")
+                   help="generate refresh (maintenance) set K instead")
     p.add_argument("--overwrite", action="store_true")
     p.add_argument("--hosts", default="",
                    help="comma-separated host list for hosts mode")
@@ -150,12 +165,9 @@ def main(argv: list[str] | None = None) -> int:
         raise NotImplementedError(
             "datagen's hosts mode (ssh fan-out) is not ported yet: "
             "ROADMAP A.6")
-    if a.update:
-        raise NotImplementedError(
-            "refresh sets (--update, Data Maintenance's input) are not "
-            "ported yet: ROADMAP A.6")
     rng = valid_range(a.range_, a.parallel) if a.range_ else None
-    generate(a.data_dir, a.scale, a.parallel, rng, overwrite=a.overwrite)
+    generate(a.data_dir, a.scale, a.parallel, rng, overwrite=a.overwrite,
+             update=a.update)
     return 0
 
 

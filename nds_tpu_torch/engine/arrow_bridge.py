@@ -4,8 +4,8 @@
 # integer column's nulls fill in Arrow, and decimals pass between scaled
 # int64 and decimal128 storage without a per-row Python loop): the
 # streamed path decodes every morsel and merges every partial through here.
-# A file's footer is read once for its row count and dictionary columns
-# (parquet_footers).
+# A file's footer is read once for its row count and dictionary columns,
+# and kept for the next registration of the same file (parquet_footers).
 """Arrow <-> engine Table conversion.
 
 Arrow is the host-side interchange format (the `collect()` analog in the
@@ -13,6 +13,8 @@ reference pulls rows to the Spark driver, nds_power.py:131; here results
 materialize as Arrow tables for reporting/validation/output writing).
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import pyarrow as pa
@@ -337,47 +339,113 @@ def merge_enc_stats(parts: list) -> "dict | None":
 
 # -- parquet dictionary pass-through (staging-thread hot loop) ----------------
 
-def parquet_footers(paths) -> tuple:
-    """(rows, dictionary columns) of parquet files from their footers
-    alone, one read a file, on a few threads. The dictionary columns are
-    the string columns dictionary-encoded in EVERY column chunk of every
-    row group of every file: reading these with
-    ParquetReadOptions(dictionary_columns=...) hands the staging thread
-    codes + dictionary directly, and from_arrow_column then skips its
-    dictionary_encode() re-encoding pass, the hot loop of double-buffered
-    morsel staging. (None, []) when a footer cannot be read."""
-    from concurrent.futures import ThreadPoolExecutor
+#: per-file footer summaries, {(path, size, mtime): (rows, the string
+#: columns dictionary-encoded in every row group)}, or {(path,): ...} for
+#: a file that never changes (a warehouse's data file): every statement
+#: that commits re-registers its table's files, most of them read before
+_FOOTERS: dict = {}
+_FOOTERS_MAX = 1 << 18
+#: a file read within this many ns of its mtime is not cached (a write
+#: in the same tick of the file system's clock would keep its key)
+_SETTLE_NS = 50_000_000
+#: the last footer schema read, and its string columns
+_LAST_SCHEMA: tuple = (None, frozenset())
+
+
+def _footer_key(path: str, immutable: bool) -> tuple:
+    if immutable:
+        return (path,)
+    st = os.stat(path)
+    return path, st.st_size, st.st_mtime_ns
+
+
+def _footer_summary(meta) -> tuple:
+    """(rows, the string columns dictionary-encoded in every row group)
+    of a parquet file's footer metadata."""
+    global _LAST_SCHEMA
+    last, strs = _LAST_SCHEMA
+    if last is None or not meta.schema.equals(last):
+        # (a table's files share their schema: converted once)
+        strs = frozenset(f.name for f in meta.schema.to_arrow_schema()
+                         if pa.types.is_string(f.type)
+                         or pa.types.is_large_string(f.type))
+        _LAST_SCHEMA = (meta.schema, strs)
+    cand = set(strs)
+    cols = [ci for ci, name in enumerate(meta.schema.names) if name in cand]
+    for rg in range(meta.num_row_groups if cols else 0):
+        group = meta.row_group(rg)
+        for ci in cols:
+            encs = set(group.column(ci).encodings)
+            if not (encs & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"}):
+                cand.discard(meta.schema.names[ci])
+    return meta.num_rows, frozenset(cand)
+
+
+def _footer(key: tuple) -> tuple:
+    """_footer_summary of one parquet file (`key`: _footer_key), from its
+    footer."""
+    import time
 
     import pyarrow.parquet as pq
 
-    paths = list(paths)
+    with pa.OSFile(key[0]) as f:        # (a local path: no URI resolved)
+        hit = _footer_summary(pq.read_metadata(f))
+    if len(key) == 1 or time.time_ns() - key[2] > _SETTLE_NS:
+        if len(_FOOTERS) >= _FOOTERS_MAX:
+            _FOOTERS.clear()
+        _FOOTERS[key] = hit
+    return hit
+
+
+def remember_footer(path: str, meta) -> None:
+    """Keep the footer summary of an immutable parquet file that this
+    process has just written (`meta`: its writer's FileMetaData, the
+    footer's content), as parquet_footers would read it."""
+    if len(_FOOTERS) >= _FOOTERS_MAX:
+        _FOOTERS.clear()
+    _FOOTERS[(path,)] = _footer_summary(meta)
+
+
+def _footer_parts(paths, immutable: bool) -> list:
+    """_footer of each of `paths`, one read a file not read before, on a
+    few threads; a footer that cannot be read raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    keys = [_footer_key(p, immutable) for p in paths]
+    parts = [_FOOTERS.get(k) for k in keys]
+    todo = [k for k, part in zip(keys, parts) if part is None]
+    # (threads overlap the opens and reads where the file system is slow
+    # to answer; the parse holds the interpreter lock)
+    with ThreadPoolExecutor(min(8, max(1, len(todo) // 64))) as pool:
+        read = dict(zip(todo, pool.map(_footer, todo)))
+    return [read[k] if part is None else part
+            for k, part in zip(keys, parts)]
+
+
+def parquet_footers(paths, immutable: bool = False) -> tuple:
+    """(rows, dictionary columns) of parquet files from their footers
+    alone, one read a file not read before, on a few threads. The
+    dictionary columns are the string columns dictionary-encoded in EVERY
+    column chunk of every row group of every file: reading these with
+    ParquetReadOptions(dictionary_columns=...) hands the staging thread
+    codes + dictionary directly, and from_arrow_column then skips its
+    dictionary_encode() re-encoding pass, the hot loop of double-buffered
+    morsel staging. (None, []) when a footer cannot be read.
+    ``immutable``: the files never change once written (a warehouse's),
+    so a file read before is known by its path alone, with no stat."""
     try:
-        # (threads overlap the opens and reads where the file system is
-        # slow to answer; the parse holds the interpreter lock)
-        with ThreadPoolExecutor(min(8, max(1, len(paths) // 64))) as pool:
-            metas = list(pool.map(pq.read_metadata, paths))
+        parts = _footer_parts(paths, immutable)
     except Exception:
         return None, []
-    rows = 0
-    cand = first = None
-    for meta in metas:
-        rows += meta.num_rows
-        if first is None or not meta.schema.equals(first):
-            schema = meta.schema.to_arrow_schema()
-            strs = {f.name for f in schema
-                    if pa.types.is_string(f.type)
-                    or pa.types.is_large_string(f.type)}
-            cand = strs if cand is None else (cand & strs)
-            first = meta.schema
-        cols = [ci for ci, name in enumerate(meta.schema.names)
-                if name in cand]
-        for rg in range(meta.num_row_groups if cols else 0):
-            group = meta.row_group(rg)
-            for ci in cols:
-                encs = set(group.column(ci).encodings)
-                if not (encs & {"PLAIN_DICTIONARY", "RLE_DICTIONARY"}):
-                    cand.discard(meta.schema.names[ci])
-    return rows, sorted(cand or ())
+    cand = frozenset.intersection(*(c for _, c in parts)) if parts \
+        else frozenset()
+    return sum(n for n, _ in parts), sorted(cand)
+
+
+def parquet_file_rows(paths) -> list:
+    """Each immutable parquet file's rows, from its footer (read once, as
+    parquet_footers reads it); a footer that cannot be read raises."""
+    return [n for n, _ in _footer_parts(paths, immutable=True)]
 
 
 def dictionary_format(cols):

@@ -37,15 +37,24 @@ one), its value ranges and encoding stats aggregated from the manifests'
 per-file stats with no data read; ``refresh_warehouse`` moves to the
 latest published version between statements.
 
+Statements (``execute``, Data Maintenance's refresh functions): CREATE
+TEMP VIEW registers its query's result (``register_view``), DROP VIEW
+drops it; INSERT runs its query on the device, eagerly, and appends the
+rows to the warehouse table as new files; DELETE rewrites the table's
+files without the rows its predicate matches, the predicate evaluated on
+the host numpy executor a batch of files at a time, the files that the
+partition key or the per-file stats rule out left unread. ``sql()`` and
+``service_run`` take queries only: DML there fails to parse, as in the
+reference.
+
 Not in this slice: sharded morsels and feedback-adapted schedules; the
-result cache, system tables, DML (INSERT and DELETE raise) and EXPLAIN
-ANALYZE.
+result cache (and the row deltas INSERT and DELETE would publish to it),
+system tables and EXPLAIN ANALYZE.
 """
 from __future__ import annotations
 
 import hashlib
 import os
-import re
 import threading
 import time
 from typing import Callable, Optional
@@ -67,10 +76,6 @@ from .executor import Executor
 from .planner import Catalog, Planner
 
 
-#: the leading keyword of a DML statement, past comment lines
-_DML = re.compile(r"\s*(?:--[^\n]*\n\s*)*(INSERT|DELETE)\b", re.IGNORECASE)
-
-
 def resolve_device(device: Optional[str]) -> torch.device:
     """The torch device for the device path: "cuda" unless asked otherwise.
     Raises when CUDA is asked for (or defaulted to) but absent: the engine
@@ -81,6 +86,68 @@ def resolve_device(device: Optional[str]) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the device "
             "path on the CPU (each kernel's plain version)")
     return dev
+
+
+def _engine_table_stats(t: Table) -> dict:
+    """{column: (lo, hi)} of an engine Table (a temp view), in engine
+    units."""
+    from .column import is_dec
+
+    out: dict = {}
+    for name, c in zip(t.names, t.columns):
+        if not (c.dtype in ("int", "date") or is_dec(c.dtype)):
+            continue
+        data = np.asarray(c.data)[c.validity]
+        if data.size:
+            out[name] = (int(data.min()), int(data.max()))
+    return out
+
+
+def _engine_col_enc_stat(t: Table, col: str):
+    """Encoding stats of one column of an engine Table (a temp view), in
+    engine units; None for a column of another type than int, date or
+    decimal."""
+    from .column import is_dec
+
+    c = t.columns[t.names.index(col)]
+    if not (c.dtype in ("int", "date") or is_dec(c.dtype)):
+        return None
+    return arrow_bridge.column_enc_stat_values(np.asarray(c.data),
+                                               c.validity)
+
+
+def _and_conjuncts(node):
+    """Top-level AND conjuncts of a WHERE AST (the partition and file-stats
+    delete pruners read them)."""
+    from ..sql import ast_nodes as A
+    if isinstance(node, A.BinOp) and node.op == "and":
+        yield from _and_conjuncts(node.left)
+        yield from _and_conjuncts(node.right)
+    else:
+        yield node
+
+
+def _with_results(where, evaluated: dict) -> tuple:
+    """`where` with each AND-conjunct `x IN (subquery)` whose rows
+    `evaluated` holds ({id(conjunct): the subquery's rows}) reading them
+    from a table of their own: (the new WHERE, {table name: rows})."""
+    import dataclasses
+
+    from ..sql import ast_nodes as A
+    tables: dict = {}
+
+    def swap(node):
+        if isinstance(node, A.BinOp) and node.op == "and":
+            return dataclasses.replace(node, left=swap(node.left),
+                                       right=swap(node.right))
+        rows = evaluated.get(id(node))
+        if rows is None:
+            return node
+        name = f"__subquery{len(tables)}"
+        tables[name] = Table(["v"], [rows.columns[0]])
+        return dataclasses.replace(node,
+                                   query=parse_sql(f"SELECT v FROM {name}"))
+    return swap(where), tables
 
 
 class Session:
@@ -463,7 +530,6 @@ class Session:
         caller that needs its own uses service_run)."""
         if "system." in query or "SYSTEM." in query:
             self._maybe_system_query(query)
-        self._refuse_dml(query)
         with self._sql_lock:
             return self._sql_locked(query, backend, label)
 
@@ -473,7 +539,6 @@ class Session:
         ExecStats) atomically, and takes the plan the service's planner
         stage built (a first sighting then skips parsing and planning).
         The service cuts the statement's query-log row itself."""
-        self._refuse_dml(query)
         with self._sql_lock:
             table = self._sql_locked(query, backend, label, plan=plan,
                                      log_row=False)
@@ -554,6 +619,305 @@ class Session:
         with self._sql_lock:
             self.warehouse.register_all(self)
 
+    # -- statements: temp views and DML over the warehouse --------------------
+    def register_view(self, name: str, table: Table,
+                      dtypes: Optional[list[str]] = None,
+                      unique_cols: Optional[tuple] = None) -> None:
+        """Register an engine Table (a temp view) directly."""
+        def load(columns=None, t=table):
+            return t if columns is None else t.select(list(columns))
+
+        def batches(columns, t=table):
+            yield arrow_bridge.to_arrow(load(columns))
+        self._registered(
+            name, table.names, dtypes or [c.dtype for c in table.columns],
+            table.num_rows, unique_cols, load, batches,
+            stats=lambda t=table: _engine_table_stats(t),
+            enc_stats=lambda col, t=table: _engine_col_enc_stat(t, col))
+        with self._lock:
+            self._cache[(name, None)] = table
+
+    def drop(self, name: str) -> None:
+        with self._lock:
+            for reg in (self._schemas, self._loaders, self._batch_sources,
+                        self._stats_sources, self._enc_stats_sources,
+                        self._col_stats, self._enc_stats, self._col_cache,
+                        self._est_rows, self._unique_cols,
+                        self._source_files, self._table_snapshot_versions):
+                reg.pop(name, None)
+            self._parse_whole.discard(name)
+            for k in [k for k in self._cache if k[0] == name]:
+                del self._cache[k]
+            self._generation += 1
+
+    def table_names(self) -> list[str]:
+        return list(self._schemas)
+
+    def execute(self, sql_text: str, backend: Optional[str] = None):
+        """Execute one or more ';'-separated statements (SELECT, CREATE
+        TEMP VIEW, DROP VIEW, INSERT INTO, DELETE FROM); returns the last
+        query's Table (None for DML alone). Serialized on _sql_lock like
+        sql(): statements are the unit of the concurrency contract."""
+        with self._sql_lock:
+            return self._execute_locked(sql_text, backend)
+
+    def _execute_locked(self, sql_text: str, backend: Optional[str]):
+        from ..sql import parse_statements
+        from ..sql.ast_nodes import CreateView, Delete, DropView, Insert, Query
+
+        self._active_label = self._auto_label(sql_text)
+        result = None
+        for stmt in parse_statements(sql_text):
+            if isinstance(stmt, Query):
+                result = self._run_query_ast(stmt, backend)
+            elif isinstance(stmt, CreateView):
+                table = self._run_query_ast(stmt.query, backend)
+                self.register_view(stmt.name, table)
+            elif isinstance(stmt, DropView):
+                self.drop(stmt.name)
+            elif isinstance(stmt, Insert):
+                self._insert(stmt, backend)
+            elif isinstance(stmt, Delete):
+                self._delete(stmt, backend)
+            else:
+                raise TypeError(type(stmt).__name__)
+        return result
+
+    def _run_query_ast(self, ast, backend: Optional[str]) -> Table:
+        """One statement's query: on the device, eagerly (a one-shot DML
+        body or view definition has no compiled lifecycle), recording its
+        fallbacks and stats; or on the host numpy executor."""
+        backend = backend or "torch"
+        if backend not in ("torch", "numpy"):
+            raise ValueError(f"unknown backend {backend!r} "
+                             "(expected 'torch' or 'numpy')")
+        plan = Planner(self._catalog()).plan_query(ast)
+        if backend == "numpy":
+            return Executor(self.load_table).execute(plan)
+        from .torch_backend.device import to_host
+        ex = self._executor()
+        ex.query_label = self._active_label
+        with ex.on_stream():
+            out = to_host(ex.run_query(None, lambda: plan))
+        self.last_fallbacks = list(ex.fallback_nodes)
+        self.last_stats = dict(ex.last_stats)
+        return out
+
+    def _insert(self, stmt, backend: Optional[str]) -> None:
+        """INSERT INTO <table> <query>: the query's rows appended to the
+        warehouse table as new files, then every table re-registered."""
+        if self.warehouse is None:
+            raise RuntimeError("INSERT requires an attached warehouse")
+        rows = self._run_query_ast(stmt.query, backend)
+        target_names, _ = self._schemas[stmt.table]
+        data = arrow_bridge.to_arrow(rows).rename_columns(target_names)
+        self.warehouse.table(stmt.table).insert(data)
+        self.warehouse.register_all(self)
+
+    def _delete(self, stmt, backend: Optional[str]) -> None:
+        """DELETE FROM <table> WHERE <pred>: rewrite the warehouse files,
+        keeping the rows that do NOT satisfy the predicate (a NULL
+        predicate keeps the row, as SQL's DELETE does). Subqueries in the
+        predicate see the session's other tables. The predicate runs on
+        the host numpy executor, whatever ``backend`` says."""
+        if self.warehouse is None:
+            raise RuntimeError("DELETE requires an attached warehouse")
+        wt = self.warehouse.table(stmt.table)
+        if stmt.where is None:
+            wt.delete_where(lambda t: pa.array([False] * t.num_rows))
+            self.warehouse.register_all(self)
+            return
+
+        def _references_target(node) -> bool:
+            """Does the WHERE read the target table (in a subquery)? A
+            batch would then see a slice of the table and compute the
+            subquery wrongly, so the table is read as one batch."""
+            import dataclasses
+
+            from ..sql import ast_nodes as A
+            stack = [node]
+            while stack:
+                x = stack.pop()
+                if isinstance(x, A.TableRef) and x.name == stmt.table:
+                    return True
+                if dataclasses.is_dataclass(x):
+                    stack.extend(getattr(x, f.name)
+                                 for f in dataclasses.fields(x))
+                elif isinstance(x, (list, tuple)):
+                    stack.extend(x)
+            return False
+
+        batch_rows = (2 ** 62 if _references_target(stmt.where)
+                      else 4_000_000)
+        part_prune = self._partition_prune(stmt.table, stmt.where,
+                                           _references_target)
+        # no file stats (a warehouse written before them): nothing could
+        # prune, so the subquery-evaluating analysis is skipped
+        evaluated: dict = {}
+        stats_prune = self._stats_prune(
+            stmt.table, stmt.where, _references_target, evaluated) \
+            if wt.file_stats() else None
+        # the subquery the stats pruner evaluated is not evaluated again
+        # for each batch: keep_filter reads its rows (the same rows: the
+        # DELETE has not committed, and the subquery does not read the
+        # target)
+        where, results = _with_results(stmt.where, evaluated)
+
+        def keep_filter(t: pa.Table):
+            # a scoped session where the target table IS this batch's
+            # rows, with a rowid column that names the matching rows. Its
+            # other tables load through this session, so that every batch
+            # reads them from this session's cache and not anew
+            tmp = Session(self.config, device=self.device)
+            for other in self._schemas:
+                if other == stmt.table:
+                    continue
+                tmp._schemas[other] = self._schemas[other]
+                tmp._loaders[other] = \
+                    lambda columns=None, o=other: self.load_table(o, columns)
+                tmp._est_rows[other] = self._est_rows.get(other, 1000)
+            for name, rows in results.items():
+                tmp._schemas[name] = (rows.names,
+                                      [c.dtype for c in rows.columns])
+                tmp._loaders[name] = lambda columns=None, r=rows: \
+                    r.select(list(columns)) if columns else r
+                tmp._est_rows[name] = rows.num_rows
+            with_id = t.append_column(
+                "__rowid", pa.array(np.arange(t.num_rows, dtype=np.int64)))
+            tmp.register_arrow(stmt.table, with_id)
+            q = parse_sql(f"SELECT __rowid FROM {stmt.table}")
+            q.body.where = where
+            hit = tmp._run_query_ast(q, backend="numpy")
+            deleted = np.zeros(t.num_rows, dtype=bool)
+            ids = np.asarray(hit.columns[0].data, dtype=np.int64)
+            deleted[ids[hit.columns[0].validity]] = True
+            return pa.array(~deleted)
+
+        wt.delete_where(keep_filter, batch_rows=batch_rows,
+                        part_prune=part_prune, stats_prune=stats_prune)
+        self.warehouse.register_all(self)
+
+    def _stats_prune(self, table: str, where, _references_target,
+                     evaluated: Optional[dict] = None):
+        """File-stats pruning rule of a DELETE: where some AND-conjunct is
+        `col IN (subquery|list)` over a stats-tracked integer column
+        (ticket and order numbers), a file whose recorded [min, max] of
+        that column holds none of the values holds no deletable row.
+        Returns callable(stats dict or None) -> process?, or None. The
+        rows of a subquery it evaluates go into `evaluated`, under
+        id(conjunct)."""
+        from ..sql import ast_nodes as A
+        from ..warehouse import TABLE_PARTITIONING
+
+        if where is None or _references_target(where):
+            return None
+        part_col = TABLE_PARTITIONING.get(table)
+
+        for c in _and_conjuncts(where):
+            col = None
+            values = out = None
+            if isinstance(c, A.InSubquery) and not c.negated and \
+                    isinstance(c.expr, A.ColumnRef):
+                col = c.expr.name
+                if col == part_col:
+                    continue        # partition pruning covers it already
+                out = self._run_query_ast(c.query, backend="numpy")
+                oc = out.columns[0]
+                vals = np.asarray(oc.data)
+                if oc.valid is not None:
+                    vals = vals[oc.valid]
+                values = vals
+            elif isinstance(c, A.InList) and not c.negated and \
+                    isinstance(c.expr, A.ColumnRef) and \
+                    all(isinstance(i, A.Literal) and
+                        isinstance(i.value, int) for i in c.items):
+                col = c.expr.name
+                if col == part_col:
+                    continue
+                values = np.asarray([i.value for i in c.items])
+            if col is None or values is None:
+                continue
+            if not np.issubdtype(values.dtype, np.integer):
+                continue
+            svals = np.sort(values)
+            if out is not None and evaluated is not None:
+                evaluated[id(c)] = out
+
+            def prune(st, col=col, svals=svals):
+                if st is None or col not in st:
+                    return True          # no stats: the file is read
+                mn, mx = st[col]
+                lo = np.searchsorted(svals, mn, side="left")
+                hi = np.searchsorted(svals, mx, side="right")
+                return bool(hi > lo)     # some value inside [mn, mx]
+            return prune
+        return None
+
+    def _partition_prune(self, table: str, where, _references_target):
+        """File-level pruning rule of a DELETE over a partitioned fact
+        table: where some AND-conjunct holds the partition key to a
+        computable set or range of values, the files of other partition
+        values hold no deletable row (a false or NULL conjunct makes the
+        whole predicate non-TRUE). Returns callable(partition value string
+        or None) -> process?, or None where no conjunct prunes."""
+        from ..sql import ast_nodes as A
+        from ..warehouse import TABLE_PARTITIONING
+
+        part_col = TABLE_PARTITIONING.get(table)
+        if part_col is None or where is None:
+            return None
+        if _references_target(where):
+            # keep_filter's one-batch rule: a subquery over the target
+            # must see every file, so no conjunct may prune
+            return None
+
+        def is_part_col(e) -> bool:
+            return isinstance(e, A.ColumnRef) and e.name == part_col
+
+        def lit(e):
+            return e.value if isinstance(e, A.Literal) else None
+
+        for c in _and_conjuncts(where):
+            if isinstance(c, A.InSubquery) and not c.negated and \
+                    is_part_col(c.expr):
+                # evaluated once here, where the whole target table is
+                # registered (the subquery is uncorrelated)
+                out = self._run_query_ast(c.query, backend="numpy")
+                col = out.columns[0]
+                vals = np.asarray(col.data)[col.validity]
+                allowed = {str(v) for v in vals.tolist()}
+                # v None: an unpartitioned file, which could hold anything.
+                # The "null" partition never matches IN, = or BETWEEN
+                return lambda v: v is None or v in allowed
+            if isinstance(c, A.InList) and not c.negated and \
+                    is_part_col(c.expr) and \
+                    all(isinstance(i, A.Literal) for i in c.items):
+                allowed = {str(lit(i)) for i in c.items}
+                return lambda v: v is None or v in allowed
+            if isinstance(c, A.Between) and not c.negated and \
+                    is_part_col(c.expr) and lit(c.low) is not None \
+                    and lit(c.high) is not None:
+                lo, hi = lit(c.low), lit(c.high)
+
+                def in_range(v, lo=lo, hi=hi):
+                    if v is None:
+                        return True
+                    if v == "null":
+                        return False       # a NULL key never matches
+                    try:
+                        return lo <= int(v) <= hi
+                    except (TypeError, ValueError):
+                        return True        # unparseable: read the file
+                return in_range
+            if isinstance(c, A.BinOp) and c.op == "=":
+                pair = ((c.left, c.right) if is_part_col(c.left)
+                        else (c.right, c.left) if is_part_col(c.right)
+                        else None)
+                if pair is not None and lit(pair[1]) is not None:
+                    allowed = {str(lit(pair[1]))}
+                    return lambda v: v is None or v in allowed
+        return None
+
     def table_snapshot_version(self, name: str) -> Optional[int]:
         """Manifest version of `name` under the pinned warehouse
         snapshot, or None when the table's registration is unpinned
@@ -623,16 +987,6 @@ class Session:
             raise NotImplementedError(
                 "system.* tables (obs/system_tables.py) are not ported "
                 "yet: ROADMAP A.5")
-
-    @staticmethod
-    def _refuse_dml(query: str) -> None:
-        """Raise for an INSERT or DELETE statement: DML over the warehouse
-        (Data Maintenance) is not ported yet."""
-        m = _DML.match(query)
-        if m:
-            raise NotImplementedError(
-                f"{m.group(1).upper()} statements (Data Maintenance's DML "
-                "over the warehouse) are not ported yet: ROADMAP A.6.2")
 
     @staticmethod
     def _auto_label(query: str) -> str:

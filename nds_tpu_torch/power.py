@@ -27,9 +27,9 @@ Where the port differs from ``nds_tpu/power.py``:
 - ``--gpu_kernels`` (``EngineConfig.gpu_kernels``) replaces
   ``--pallas_ops``;
 - a JSON summary's ``execStats`` is the session's ``last_stats``;
-- not ported yet, each raising before any query runs: the maintenance
-  staging tables (ROADMAP A.6.2), ``--explain`` and ``--verify_plans``
-  other than ``off`` (A.5), ``--mesh_shards`` above 1 (A.4).
+- not ported yet, each raising before any query runs: ``--explain``
+  and ``--verify_plans`` other than ``off`` (A.5), ``--mesh_shards``
+  above 1 (A.4).
 
 As in the reference, CSV decimals load as doubles; exact decimals come
 from a warehouse transcoded with ``--use_decimal``
@@ -50,7 +50,7 @@ from .config import EngineConfig
 from .engine.session import Session
 from .report import BenchReport
 from .resilience import FAULTS, FaultSpec, RetryPolicy, run_with_deadline
-from .schema import get_schemas
+from .schema import get_maintenance_schemas, get_schemas
 from .streams import SPECIAL_TEMPLATES, split_special_query
 
 _START_RE = re.compile(
@@ -97,17 +97,12 @@ def _emit(queries, number, lines):
 def setup_tables(session: Session, input_prefix: str, input_format: str,
                  use_decimal: bool = True,
                  maintenance: bool = False) -> dict[str, float]:
-    """Register the 24 source tables from per-table directories of CSV
+    """Register the 24 source tables (and with ``maintenance`` the
+    refresh set's staging tables) from per-table directories of CSV
     (pipe-delimited, decimals read as doubles) or Parquet files, or from a
     warehouse layout (a ``manifest.json`` under the prefix: the pinned
     snapshot, timed under "warehouse"). Returns per-table registration
-    times (the reference times view creation, nds_power.py:94-104).
-
-    The maintenance staging tables are not ported yet (ROADMAP A.6.2)."""
-    if maintenance:
-        raise NotImplementedError(
-            "the maintenance staging tables (Data Maintenance) are not "
-            "ported yet: ROADMAP A.6.2")
+    times (the reference times view creation, nds_power.py:94-104)."""
     times: dict[str, float] = {}
     if input_format == "parquet" and glob.glob(
             os.path.join(input_prefix, "*", "manifest.json")):
@@ -120,7 +115,10 @@ def setup_tables(session: Session, input_prefix: str, input_format: str,
         return times
     if input_format not in ("csv", "parquet"):
         raise ValueError(f"unsupported input format {input_format}")
-    for name, sch in get_schemas(use_decimal).items():
+    schemas = dict(get_schemas(use_decimal))
+    if maintenance:
+        schemas.update(get_maintenance_schemas(use_decimal))
+    for name, sch in schemas.items():
         path = os.path.join(input_prefix, name)
         if not os.path.exists(path):
             continue

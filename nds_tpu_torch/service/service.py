@@ -578,7 +578,6 @@ class QueryService:
             # system.* statements (obs/system_tables.py) are not ported:
             # raises NotImplementedError when the statement reads them
             self.session._maybe_system_query(query)
-        self.session._refuse_dml(query)     # DML: ROADMAP A.6.2
         if self._breaker is not None:
             # breaker gate BEFORE the pending set: a tripped class sheds
             # load at the door (typed, fatal-until-probe) so the queue

@@ -4,7 +4,8 @@
 # only a manifest's snapshot list, manifests are written as compact JSON,
 # a file's distinct values convert to Python ints in one tolist(), and a
 # data file dictionary-encodes only its strings and low-cardinality
-# columns (_dictionary_columns).
+# columns (_dictionary_columns), and a Warehouse keeps the manifests it
+# read or wrote decoded while they stay unchanged on disk (_load_doc).
 """Parquet warehouse with snapshot manifests: insert/delete/time-travel.
 
 The capability subset of Iceberg/Delta that the benchmark actually uses
@@ -48,6 +49,7 @@ statement resolves every table against ONE warehouse snapshot.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import os
@@ -56,6 +58,8 @@ import time
 import uuid
 
 import pyarrow as pa
+import pyarrow.dataset as pa_dataset
+import pyarrow.fs as pafs
 import pyarrow.parquet as pq
 
 from .resilience import FAULTS
@@ -87,22 +91,106 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _atomic_write_json(path: str, doc: dict) -> None:
+def _atomic_write_json(path: str, doc: dict, text: str | None = None) -> None:
     """Crash-consistent JSON publication: unique temp file + flush +
     fsync(file) + atomic rename + fsync(dir). A reader opening ``path``
     sees either the previous complete document or this one — never a
     prefix; a crash at any byte leaves at worst an orphaned ``*.tmp``
-    no reader ever opens."""
+    no reader ever opens. ``text``: ``json.dumps(doc)``, where the caller
+    has it already."""
     tmp = f"{path}.{uuid.uuid4().hex[:8]}.tmp"
     with open(tmp, "w") as f:
         # compact, in one C-encoded string: an indented json.dump encodes
         # in Python, and a fact table's manifest holds thousands of files'
         # stats (most of the Load Test's time at SF1 went there)
-        f.write(json.dumps(doc))
+        f.write(json.dumps(doc) if text is None else text)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)
     _fsync_dir(os.path.dirname(path))
+
+
+def _identity(path: str):
+    """A file's identity for the manifest cache: (inode, mtime, size), or
+    None where it does not exist. Every manifest write is a new file
+    renamed into place, so another write changes it, unless it lands in
+    the same tick of the file system's clock: a file read within
+    _SETTLE_NS of its mtime is not cached (_settled)."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return None
+    return st.st_ino, st.st_mtime_ns, st.st_size
+
+
+#: how old a manifest's mtime must be for a read of it to be cached: past
+#: the file system clock's tick, a later write has another mtime
+_SETTLE_NS = 50_000_000
+
+
+def _settled(ident) -> bool:
+    return time.time_ns() - ident[1] > _SETTLE_NS
+
+
+#: the local file system, which a dataset over known paths is given
+_LOCAL_FS = pafs.LocalFileSystem()
+
+#: the manifest keys whose encoded text a Warehouse keeps (_encode_doc)
+_STATS_KEYS = ("file_stats", "enc_stats")
+
+
+def _encode_doc(doc: dict, texts: dict) -> tuple:
+    """(json.dumps(doc), {key: (map, its text)} of doc's stats maps). A
+    stats map whose first entries are those of a map in ``texts`` (the
+    same keys, the same value objects: commits only add files' stats)
+    reuses that map's text and encodes only its new entries."""
+    import itertools
+
+    parts, out = [], {}
+    for key, value in doc.items():
+        if key in _STATS_KEYS and isinstance(value, dict):
+            old, text = texts.get(key, ({}, None))
+            n = len(old)
+            if text is None or len(value) < n or not all(
+                    k1 == k2 and v1 is v2 for (k1, v1), (k2, v2)
+                    in zip(value.items(), old.items())):
+                text = json.dumps(value)
+            elif len(value) > n:
+                new = json.dumps(dict(itertools.islice(value.items(), n,
+                                                       None)))
+                text = text[:-1] + (", " if n else "") + new[1:]
+            out[key] = (value, text)
+        else:
+            text = json.dumps(value)
+        parts.append(f"{json.dumps(key)}: {text}")
+    return "{" + ", ".join(parts) + "}", out
+
+
+def _stats_texts(text: str, doc: dict) -> dict:
+    """_encode_doc's texts of a manifest read from `text`: its stats maps'
+    spans, where `text` is json.dumps(doc) as this module writes it (keys
+    in _encode_doc's order, no newline); {} otherwise."""
+    head, tail = '"file_stats": ', ', "enc_stats": '
+    if list(doc) != ["table", "snapshots", *_STATS_KEYS] or "\n" in text:
+        return {}
+    start, mid = text.find(head), text.rfind(tail)
+    if start < 0 or mid < start or not text.endswith("}"):
+        return {}
+    file_stats = text[start + len(head):mid]
+    enc_stats = text[mid + len(tail):-1]
+    if not (file_stats[:1] == enc_stats[:1] == "{"
+            and file_stats[-1:] == enc_stats[-1:] == "}"):
+        return {}
+    return {"file_stats": (doc["file_stats"], file_stats),
+            "enc_stats": (doc["enc_stats"], enc_stats)}
+
+
+def _doc_copy(doc: dict) -> dict:
+    """A manifest document whose snapshot list and stats maps the caller
+    may change (their entries are shared: no caller changes those)."""
+    return {**doc, "snapshots": list(doc["snapshots"]),
+            "file_stats": dict(doc.get("file_stats", {})),
+            "enc_stats": dict(doc.get("enc_stats", {}))}
 
 
 #: the manifest key whose value WarehouseTable._load decodes alone (the
@@ -118,7 +206,38 @@ def _read_file(path: str) -> pa.Table:
     refuses to merge the inferred dictionary field with the identical
     column KEPT in the file — warehouse files always carry their partition
     column, so partition inference must stay off."""
-    return pq.read_table(path, partitioning=None)
+    return pq.read_table(path, partitioning=None, filesystem=_LOCAL_FS)
+
+
+def _write_parquet(table: pa.Table, path: str, **options) -> None:
+    """pq.write_table of `table` to the local `path` (given the file
+    system: no URI to resolve, no stat), whose footer summary the next
+    registration then finds kept (arrow_bridge.remember_footer): a
+    maintenance statement writes hundreds of small files, and each would
+    be read again."""
+    from .engine import arrow_bridge
+
+    meta: list = []
+    pq.write_table(table, path, filesystem=_LOCAL_FS,
+                   metadata_collector=meta, **options)
+    arrow_bridge.remember_footer(path, meta[0])
+
+
+def _read_ahead(paths: list, depth: int = 16):
+    """_read_file of each of `paths`, in order, with up to `depth` reads
+    in flight on threads (a Parquet read leaves the interpreter lock):
+    a DELETE reads hundreds of small files."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(min(8, depth)) as pool:
+        pending: deque = deque()
+        for path in paths:
+            pending.append(pool.submit(_read_file, path))
+            if len(pending) > depth:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
 
 
 def _partition_value(path: str):
@@ -256,8 +375,11 @@ class FileWriters:
         array into it."""
         if self.procs < 2 or len(parts) < 2 * self.procs or \
                 table.num_rows < self.min_rows:
-            done = [wt._write_one(_rows(table, rows), v)
-                    for rows, v in parts]
+            t0 = time.perf_counter()
+            pre = _parts_stats(table, parts) or [None] * len(parts)
+            self.seconds["stats"] += time.perf_counter() - t0
+            done = [wt._write_one(_rows(table, rows), v, st)
+                    for (rows, v), st in zip(parts, pre)]
         else:
             done = self._spawned(wt, table, parts)
         for *_, (write_s, stats_s) in done:
@@ -313,6 +435,96 @@ def _enc_file_stats(table: pa.Table) -> dict:
     return out
 
 
+def _vector_stats_type(t: pa.DataType) -> bool:
+    """A column type whose stats _parts_stats takes in one pass: the
+    stats types whose values convert exactly to int64."""
+    return pa.types.is_signed_integer(t) or pa.types.is_date32(t) or \
+        (pa.types.is_unsigned_integer(t) and t.bit_width <= 32) or \
+        (pa.types.is_decimal128(t) and t.precision <= 18)
+
+
+def _parts_stats(table: pa.Table, parts: list) -> list:
+    """[(_file_stats, _enc_file_stats)] of each of `parts` ((rows,
+    partition value), as FileWriters.write takes them), the same values,
+    in a few numpy passes a column over all of them: an INSERT writes a
+    file a date, a few rows each, and the per-file functions spend a few
+    Arrow and numpy calls a column on each. None where a stats column has
+    another type than _vector_stats_type's."""
+    import numpy as np
+
+    from .engine.arrow_bridge import ENC_MAX_CARD, from_arrow_column
+
+    cols = [n for n, f in zip(table.column_names, table.schema)
+            if pa.types.is_integer(f.type) or pa.types.is_date(f.type)
+            or pa.types.is_decimal(f.type)]
+    lens = np.array([rows[1] if isinstance(rows, tuple) else len(rows)
+                     for rows, _ in parts], dtype=np.int64)
+    if not all(_vector_stats_type(table.schema.field(n).type)
+               for n in cols) or not lens.all():
+        return None
+    idx = np.concatenate([
+        np.arange(rows[0], rows[0] + rows[1]) if isinstance(rows, tuple)
+        else np.asarray(rows, dtype=np.int64) for rows, _ in parts]) \
+        if parts else np.empty(0, np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int64)
+    seg = np.repeat(np.arange(len(parts), dtype=np.int64), lens)
+    out = [({}, {}) for _ in parts]
+    if not len(idx):
+        return out
+    for name in cols:
+        c = from_arrow_column(table.column(name), dec_as_int=True)
+        data = np.asarray(c.data, dtype=np.int64)[idx]
+        valid = np.asarray(c.validity, dtype=bool)[idx]
+        # runs over the null-filled values, each part's first row a start
+        filled = np.where(valid, data, 0)
+        start = np.ones(len(filled), dtype=bool)
+        start[1:] = filled[1:] != filled[:-1]
+        start[starts] = True
+        runs = np.add.reduceat(start, starts)
+        # each part's sorted distinct valid values
+        sv, dv = seg[valid], data[valid]
+        order = np.lexsort((dv, sv))
+        sv, dv = sv[order], dv[order]
+        first = np.ones(len(dv), dtype=bool)
+        first[1:] = (sv[1:] != sv[:-1]) | (dv[1:] != dv[:-1])
+        us, ud = sv[first], dv[first]
+        count = np.bincount(us, minlength=len(parts))
+        at = np.concatenate([[0], np.cumsum(count)[:-1]])
+        values = ud.tolist()            # (Python ints, as the manifest's)
+        for (stats, enc), n, a, r, rows in zip(
+                out, count.tolist(), at.tolist(), runs.tolist(),
+                lens.tolist()):
+            if n:
+                stats[name] = [values[a], values[a + n - 1]]
+            ent = {"runs": r, "rows": rows,
+                   "distinct_count": n if n <= ENC_MAX_CARD else None}
+            if n <= ENC_MANIFEST_MAX_DISTINCT:
+                ent["distinct"] = values[a:a + n]
+            enc[name] = ent
+    return out
+
+
+def _tables_stats(tables: list) -> list:
+    """[(_file_stats, _enc_file_stats)] of each of `tables` (none empty),
+    by _parts_stats over each run of them that share a schema."""
+    import numpy as np
+
+    out: list = []
+    i = 0
+    while i < len(tables):
+        j = i + 1
+        while j < len(tables) and tables[j].schema.equals(tables[i].schema):
+            j += 1
+        run = tables[i:j]
+        sizes = [t.num_rows for t in run]
+        starts = np.cumsum([0] + sizes[:-1]).tolist()
+        got = _parts_stats(pa.concat_tables(run),
+                           [((a, n), None) for a, n in zip(starts, sizes)])
+        out += got or [(_file_stats(t), _enc_file_stats(t)) for t in run]
+        i = j
+    return out
+
+
 class WarehouseTable:
     def __init__(self, root: str, name: str, warehouse=None):
         self.dir = os.path.join(root, name)
@@ -323,30 +535,57 @@ class WarehouseTable:
         self._warehouse = warehouse
 
     # -- manifest ------------------------------------------------------------
+    def _cache(self) -> dict:
+        """The owning Warehouse's decoded manifests, {path: (identity,
+        document or None, snapshot list, {stats key: (map, its encoded
+        text)})}; a bare table caches nothing."""
+        return self._warehouse._manifests if self._warehouse is not None \
+            else {}
+
     def _load_doc(self) -> dict:
-        if not os.path.exists(self.manifest_path):
+        ident = _identity(self.manifest_path)
+        if ident is None:
             return {"table": self.name, "snapshots": [], "file_stats": {},
                     "enc_stats": {}}
+        cache = self._cache()
+        hit = cache.get(self.manifest_path)
+        if hit is not None and hit[0] == ident and hit[1] is not None:
+            return _doc_copy(hit[1])
         # manifests are published fsync-atomically (_store_doc), so a
         # torn read is impossible by construction — a decode failure is
         # real corruption and fails loudly, naming the file
         try:
             with open(self.manifest_path) as f:
-                doc = json.load(f)
+                text = f.read()
+            doc = json.loads(text)
         except json.JSONDecodeError as e:
             raise RuntimeError(
                 f"corrupt warehouse manifest {self.manifest_path}: "
                 f"{e}") from e
         doc.setdefault("file_stats", {})
         doc.setdefault("enc_stats", {})
-        return doc
+        if self._warehouse is not None and _settled(ident):
+            # (the identity read before the file: a newer file read under
+            # it is only ever a miss later)
+            cache[self.manifest_path] = (ident, doc, doc["snapshots"],
+                                         _stats_texts(text, doc))
+        return _doc_copy(doc)
 
     def _load(self) -> list[dict]:
         """The snapshot list alone, decoded from its own span of the
         manifest: a fact table's manifest is mostly per-file stats (tens
         to hundreds of MB at SF10), which a reader of its files does not
         need. A document that does not end as written, or whose list does
-        not decode, takes the whole parse (and its loud failure)."""
+        not decode, takes the whole parse (and its loud failure). A
+        manifest unchanged since this Warehouse last read or wrote it is
+        not read again."""
+        ident = _identity(self.manifest_path)
+        if ident is None:
+            return []
+        cache = self._cache()
+        hit = cache.get(self.manifest_path)
+        if hit is not None and hit[0] == ident:
+            return list(hit[2])
         try:
             with open(self.manifest_path) as f:
                 text = f.read()
@@ -360,12 +599,28 @@ class WarehouseTable:
             except json.JSONDecodeError:
                 snaps = None
             if isinstance(snaps, list):
-                return snaps
+                if self._warehouse is not None and _settled(ident):
+                    cache[self.manifest_path] = (ident, None, snaps, {})
+                return list(snaps)
         return self._load_doc()["snapshots"]
 
     def _store_doc(self, doc: dict) -> None:
+        """Write the manifest. The caller hands `doc` over: a Warehouse
+        keeps it decoded, with its stats maps' text for the next write."""
         FAULTS.fire("manifest.write", self.name)
-        _atomic_write_json(self.manifest_path, doc)
+        if self._warehouse is None:
+            _atomic_write_json(self.manifest_path, doc)
+            return
+        hit = self._cache().get(self.manifest_path)
+        text, texts = _encode_doc(doc, hit[3] if hit is not None else {})
+        _atomic_write_json(self.manifest_path, doc, text)
+        # what was written, as a reader would decode it (a manifest holds
+        # JSON types only: lists, str keys, ints). This Warehouse is the
+        # table's one writer: another write that kept the identity would
+        # have to land in the same clock tick on this file's inode, after
+        # one more write had freed it
+        self._cache()[self.manifest_path] = (
+            _identity(self.manifest_path), doc, doc["snapshots"], texts)
 
     def _store(self, snapshots: list[dict]) -> None:
         doc = self._load_doc()
@@ -486,10 +741,12 @@ class WarehouseTable:
     def _write_file(self, table: pa.Table, partition_val=None) -> str:
         return self._record(self._write_one(table, partition_val))
 
-    def _write_one(self, table: pa.Table, partition_val=None) -> tuple:
+    def _write_one(self, table: pa.Table, partition_val=None,
+                   stats: tuple | None = None) -> tuple:
         """Write one data file; returns (relative path, [min, max] stats,
         encoding stats, (write seconds, stats seconds)) for _record (a
-        writer process returns them to the caller)."""
+        writer process returns them to the caller). `stats`: the file's
+        (stats, encoding stats), where the caller took them."""
         base = f"part-{uuid.uuid4().hex[:12]}.parquet"
         if partition_val is not None:
             part_col = TABLE_PARTITIONING[self.name]
@@ -500,9 +757,9 @@ class WarehouseTable:
             os.makedirs(os.path.join(self.dir, "data"), exist_ok=True)
             rel = os.path.join("data", base)
         t0 = time.perf_counter()
-        stats, enc = _file_stats(table), _enc_file_stats(table)
+        stats, enc = stats or (_file_stats(table), _enc_file_stats(table))
         t1 = time.perf_counter()
-        pq.write_table(table, os.path.join(self.dir, rel),
+        _write_parquet(table, os.path.join(self.dir, rel),
                        use_dictionary=_dictionary_columns(table, enc))
         return rel, stats, enc, (time.perf_counter() - t1, t1 - t0)
 
@@ -649,6 +906,7 @@ class WarehouseTable:
                 pa.concat_tables(batch_tables, promote_options="permissive")
             keep = pa.array(keep_filter(whole), type=pa.bool_())
             offset = 0
+            rewrite = []
             for path, t in zip(batch_paths, batch_tables):
                 part = keep.slice(offset, t.num_rows)
                 offset += t.num_rows
@@ -659,17 +917,18 @@ class WarehouseTable:
                     continue
                 if n_keep == 0:
                     continue
-                kept = t.filter(part)
+                rewrite.append((rel, t.filter(part)))
+            # (the rewritten files' stats in a few passes over all of them)
+            for (rel, kept), (st, enc) in zip(
+                    rewrite, _tables_stats([k for _, k in rewrite])):
                 base = f"part-{uuid.uuid4().hex[:12]}.parquet"
                 new_rel = os.path.join(os.path.dirname(rel), base)
-                pq.write_table(kept, os.path.join(self.dir, new_rel))
-                st = _file_stats(kept)
+                _write_parquet(kept, os.path.join(self.dir, new_rel))
                 if st:
                     # rewritten files keep pruning on later delete rounds
                     if not hasattr(self, "_new_stats"):
                         self._new_stats = {}
                     self._new_stats[new_rel] = st
-                enc = _enc_file_stats(kept)
                 if enc:
                     if not hasattr(self, "_new_enc_stats"):
                         self._new_enc_stats = {}
@@ -679,8 +938,7 @@ class WarehouseTable:
         batch_paths: list[str] = []
         batch_tables: list[pa.Table] = []
         rows = 0
-        for path in paths:
-            t = _read_file(path)
+        for path, t in zip(paths, _read_ahead(paths)):
             batch_paths.append(path)
             batch_tables.append(t)
             rows += t.num_rows
@@ -831,6 +1089,14 @@ class Warehouse:
         self.current_path = os.path.join(self.snapshots_dir, "CURRENT")
         #: the open WarehouseTransaction (single writer per Warehouse)
         self._txn: WarehouseTransaction | None = None
+        #: decoded manifests by path, each under the identity of the file
+        #: it came from (WarehouseTable._load_doc, _load, _store_doc): a
+        #: writer's statements re-read unchanged manifests for free
+        self._manifests: dict = {}
+        #: each data file's columns as loads read them, {(path, column,
+        #: type): ChunkedArray}, while ``writing``; None: every load reads
+        #: all its files
+        self._file_columns: dict | None = None
         # warehouses that never opened a transaction have no _snapshots
         # directory and skip recovery entirely (bit-identical legacy path)
         if os.path.isdir(self.snapshots_dir):
@@ -843,6 +1109,49 @@ class Warehouse:
         return sorted(
             os.path.basename(os.path.dirname(m)) for m in
             glob.glob(os.path.join(self.root, "*", "manifest.json")))
+
+    @contextlib.contextmanager
+    def writing(self):
+        """While entered (a run of refresh functions), a table registered
+        from this warehouse keeps each data file's columns as its loads
+        read them. A statement's commit re-registers the table it wrote,
+        and the next statement's load of it then reads only the files the
+        commit wrote."""
+        self._file_columns = {}
+        try:
+            yield self
+        finally:
+            self._file_columns = None
+
+    def _scan(self, dataset, columns):
+        """dataset.to_table(columns=columns), reading only the files whose
+        columns ``writing`` has not kept (as the dataset's schema types
+        them: the first file's)."""
+        cache = self._file_columns
+        if cache is None or columns is None:
+            return dataset.to_table(columns=columns)
+        from .engine import arrow_bridge
+
+        schema = dataset.schema
+        files = dataset.files
+        keys = [[(f, c, schema.field(c).type) for c in columns]
+                for f in files]
+        todo = [f for f, ks in zip(files, keys)
+                if any(k not in cache for k in ks)]
+        if todo:
+            got = pa_dataset.FileSystemDataset.from_paths(
+                todo, schema=schema, format=dataset.format,
+                filesystem=_LOCAL_FS).to_table(columns=columns)
+            at = 0
+            for f, n in zip(todo, arrow_bridge.parquet_file_rows(todo)):
+                for c in columns:
+                    cache[(f, c, schema.field(c).type)] = \
+                        got.column(c).slice(at, n)
+                at += n
+        return pa.table(
+            [pa.chunked_array([ch for ks in keys for ch in cache[ks[i]].chunks],
+                              type=schema.field(c).type)
+             for i, c in enumerate(columns)], names=list(columns))
 
     # -- warehouse-level snapshot log ---------------------------------------
     def transaction(self, committer: str = "") -> WarehouseTransaction:
@@ -1003,8 +1312,6 @@ class Warehouse:
         travels the whole warehouse to an older published version. A
         table's value ranges and encoding stats aggregate from its
         manifest's per-file stats, with no data read."""
-        import pyarrow.dataset as pa_dataset
-
         from .engine import arrow_bridge
 
         pin = self._pin_record(session, at_version)
@@ -1036,17 +1343,25 @@ class Warehouse:
                     session._source_files.get(name) == src_key:
                 continue
             # one footer read a file gives the row count and the string
-            # columns that pass through as codes + dictionary
-            rows, dict_cols = arrow_bridge.parquet_footers(files)
-            fmt = arrow_bridge.dictionary_format(dict_cols) or "parquet"
-            dataset = pa_dataset.dataset(files, format=fmt)
+            # columns that pass through as codes + dictionary (a data file
+            # never changes: one read before is not read again)
+            rows, dict_cols = arrow_bridge.parquet_footers(files,
+                                                          immutable=True)
+            fmt = arrow_bridge.dictionary_format(dict_cols) or \
+                pa_dataset.ParquetFileFormat()
+            # the schema of the first file, as pa_dataset.dataset(files)
+            # infers it, without a stat of every file
+            dataset = pa_dataset.FileSystemDataset.from_paths(
+                files, schema=pa_dataset.dataset(files[:1],
+                                                 format=fmt).schema,
+                format=fmt, filesystem=_LOCAL_FS)
             names, dtypes = arrow_bridge.engine_schema(dataset.schema, dec)
             if rows is None:
                 rows = dataset.count_rows()
 
             def load(columns=None, ds=dataset, dec=dec):
                 cols = list(columns) if columns is not None else None
-                return arrow_bridge.from_arrow(ds.to_table(columns=cols), dec)
+                return arrow_bridge.from_arrow(self._scan(ds, cols), dec)
 
             def batches(columns, ds=dataset):
                 cols = list(columns) if columns is not None else None

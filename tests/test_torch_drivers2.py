@@ -6,8 +6,8 @@ is retried; ``resume`` keeps the Power Start Time; a query over its
 deadline records Failed (DeadlineExceeded) while its abandoned worker
 stops before its next device work and the next query runs, equal to the
 numpy oracle. Also: every option the port has not yet raises naming its
-ROADMAP item before any query runs (and SQL DML over a warehouse raises
-naming Data Maintenance's); without CUDA the runner raises unless
+ROADMAP item before any query runs (Data Maintenance's options, ported
+since, are held against the reference in their place); without CUDA the runner raises unless
 the CPU is asked for; ``precompile_parallel`` compiles every recorded
 unit; the per-program device-time registry; the property file; the
 datagen CLI; the report's host capture and the preflight checks.
@@ -170,31 +170,92 @@ def test_an_abandoned_statement_stops_before_its_next_device_work(paths):
     assert isinstance(box.get("error"), StatementAbandoned), box
 
 
+#: the cases of Data Maintenance's options, ported since: each holds the
+#: port against the reference (_ported_case)
+PORTED = ("warehouse", "maintenance", "datagen_update")
+
+
+def _ported_case(paths, tmp_path, case):
+    """warehouse: DML through sql() raises as the reference's does and
+    execute() of it commits one version, as the reference's; maintenance:
+    setup_tables(maintenance=True) registers the staging tables the
+    reference's registers, with the same rows; datagen_update: the
+    datagen CLI's --update writes the reference's refresh set."""
+    import filecmp
+
+    from nds_tpu import datagen as rdatagen
+    from nds_tpu import power as rpower
+    from nds_tpu import transcode as rtranscode
+    from nds_tpu.engine import Session as RSession
+    from nds_tpu.sql.parser import SqlParseError as RSqlParseError
+    from nds_tpu.warehouse import Warehouse as RWarehouse
+    from nds_tpu_torch.sql.parser import SqlParseError
+    sides = (("port", lambda: nt.Session(device="cpu"), transcode,
+              Warehouse, SqlParseError, power, datagen),
+             ("ref", RSession, rtranscode, RWarehouse, RSqlParseError,
+              rpower, rdatagen))
+    seen = {}
+    for side, session, tc, wh_cls, err, pw, dg in sides:
+        if case == "warehouse":
+            wh = str(tmp_path / f"wh_{side}")
+            tc.transcode(paths["csv"], wh, tables=["store"])
+            s = session()
+            s.attach_warehouse(wh_cls(wh))
+            sql = "INSERT INTO store SELECT * FROM store"
+            with pytest.raises(err, match="expected a SELECT query"):
+                s.sql(sql)
+            with s.warehouse.transaction(committer="dml"):
+                s.execute(sql)
+            s.refresh_warehouse()
+            seen[side] = (s.warehouse.current_version(),
+                          s.warehouse.table("store").read().num_rows)
+        elif case == "maintenance":
+            upd = str(tmp_path / "upd")
+            if not os.path.exists(upd):
+                datagen.generate(upd, 0.01, 1, update=1)
+            s = session()
+            names = sorted(pw.setup_tables(s, upd, "csv", maintenance=True))
+            n = s.sql("SELECT COUNT(*) AS n FROM s_purchase_lineitem",
+                      backend="numpy").columns[0].data.tolist()
+            seen[side] = (names, n)
+        else:
+            out = str(tmp_path / f"upd_{side}")
+            dg.main(["local", out, "--scale", "0.01", "--parallel", "1",
+                     "--update", "1"])
+            seen[side] = sorted(os.path.relpath(os.path.join(r, f), out)
+                                for r, _, fs in os.walk(out) for f in fs)
+    assert seen["port"] == seen["ref"]
+    if case == "warehouse":
+        assert seen["port"][0] == 1
+    elif case == "maintenance":
+        assert "s_purchase_lineitem" in seen["port"][0]
+    else:
+        assert len(seen["port"]) == len(datagen.MAINTENANCE_TABLES)
+        for rel in seen["port"]:
+            assert filecmp.cmp(str(tmp_path / "upd_port" / rel),
+                               str(tmp_path / "upd_ref" / rel),
+                               shallow=False), rel
+
+
 @pytest.mark.parametrize("case", [
     "explain", "verify_plans", "mesh_shards", "warehouse", "maintenance",
     "datagen_hosts", "datagen_update"])
 def test_unported_options_raise_naming_their_roadmap_item(paths, tmp_path,
                                                           case):
-    item = {"explain": "A.5", "verify_plans": "A.5", "mesh_shards": "A.4",
-            "warehouse": "A.6.2", "maintenance": "A.6.2",
-            "datagen_hosts": "A.6", "datagen_update": "A.6"}[case]
+    """The options not ported yet raise naming their ROADMAP item before
+    any query runs. Data Maintenance's (DML over the warehouse, the
+    staging tables, datagen --update) are ported: their cases hold the
+    port against the reference (_ported_case)."""
     log = str(tmp_path / "time.csv")
+    if case in PORTED:
+        _ported_case(paths, tmp_path, case)
+        assert not os.path.exists(log)
+        return
+    item = {"explain": "A.5", "verify_plans": "A.5", "mesh_shards": "A.4",
+            "datagen_hosts": "A.6"}[case]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        if case.startswith("datagen"):
-            datagen.main(["hosts" if case == "datagen_hosts" else "local",
-                          str(tmp_path / "d"), "--update",
-                          "1" if case == "datagen_update" else "0"])
-        elif case == "maintenance":
-            power.setup_tables(nt.Session(device="cpu"), paths["csv"],
-                               "csv", maintenance=True)
-        elif case == "warehouse":
-            # the warehouse reads; its DML (Data Maintenance) is A.6.2
-            transcode.transcode(paths["csv"], str(tmp_path / "wh"),
-                                tables=["store"])
-            session = nt.Session(device="cpu")
-            session.attach_warehouse(Warehouse(str(tmp_path / "wh")))
-            assert session.sql("SELECT COUNT(*) AS n FROM store").num_rows
-            session.sql("INSERT INTO store SELECT * FROM store")
+        if case == "datagen_hosts":
+            datagen.main(["hosts", str(tmp_path / "d"), "--update", "0"])
         else:
             kw = {"explain": {"explain": True},
                   "verify_plans": {"verify_plans": "final"},

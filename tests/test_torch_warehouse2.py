@@ -10,8 +10,9 @@ and ``WarehouseTable.insert``; no SQL DML) is seen by ``refresh_warehouse``
 while ``attach_warehouse(at_version=1)`` keeps the first, with the
 reference's ``warehouse_version`` and ``table_snapshot_version`` (the read
 halves of tests/test_txn.py's pinning and AS OF cases, and its stray-temp,
-corrupt-manifest and transactions-off cases). SQL DML raises naming Data
-Maintenance's ROADMAP item. A port power run over the port's warehouse and
+corrupt-manifest and transactions-off cases). SQL DML through ``sql`` and
+the query service raises as the reference's does, and ``execute`` of it
+commits one version equal to the reference's. A port power run over the port's warehouse and
 a reference power run over the reference's write outputs that pass both
 validators both ways.
 """
@@ -288,17 +289,37 @@ def test_transactions_disabled_is_bit_identical_legacy(tmp_path):
     "INSERT INTO fact SELECT fk, qty FROM fact",
     "  -- a refresh function\n delete from fact WHERE fk = 3"])
 def test_dml_raises_naming_data_maintenance(tmp_path, sql):
-    """Through Session.sql and through the query service."""
+    """DML through Session.sql and through the query service raises as
+    the reference's does (a query was expected) and moves no version;
+    Session.execute of the same text in a transaction commits one
+    version, whose rows are the reference's."""
+    from nds_tpu.service import QueryService as RQueryService
+    from nds_tpu.sql.parser import SqlParseError as RSqlParseError
     from nds_tpu_torch.service import QueryService
-    s = nt.Session(device="cpu")
-    s.attach_warehouse(_seeded(str(tmp_path / "wh"), Warehouse))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6.2"):
-        s.sql(sql)
-    with QueryService(s) as svc:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6.2"):
-            svc.submit(sql)
-    assert s.warehouse.current_version() == 1
-    assert s.warehouse.table("fact").manifest_version() == 1
+    from nds_tpu_torch.sql.parser import SqlParseError
+    seen = {}
+    for side, cls, svc_cls, err in (
+            ("port", Warehouse, QueryService, SqlParseError),
+            ("ref", RWarehouse, RQueryService, RSqlParseError)):
+        s = _session(side)
+        wh = _seeded(str(tmp_path / side), cls)
+        s.attach_warehouse(wh)
+        with pytest.raises(err, match="expected a SELECT query"):
+            s.sql(sql)
+        with svc_cls(s) as svc:
+            with pytest.raises(err, match="expected a SELECT query"):
+                svc.submit(sql).result(timeout=60)
+        assert wh.current_version() == 1
+        assert wh.table("fact").manifest_version() == 1
+        with wh.transaction(committer="dml"):
+            assert s.execute(sql) is None
+        s.refresh_warehouse()
+        assert (wh.current_version(), wh.table("fact").manifest_version(),
+                wh.table("dim").manifest_version()) == (2, 2, 1)
+        seen[side] = (_hash(s.sql(JOIN_Q, backend="numpy")),
+                      wh.table("fact").read().num_rows)
+    assert seen["port"] == seen["ref"]
+    assert seen["port"][1] != 800
 
 
 def test_power_run_over_the_warehouse_matches_the_reference(paths,

@@ -8,6 +8,7 @@ the card-only file may use it too.
 """
 import os
 
+import pyarrow as pa
 import pyarrow.csv as pa_csv
 import pyarrow.parquet as pq
 
@@ -72,3 +73,35 @@ def log_rows(time_log: str) -> list:
     import csv
     with open(time_log) as f:
         return [r for r in csv.reader(f) if r]
+
+
+def file_faults(got, want) -> list:
+    """Differences between two Arrow tables (warehouse data files) as
+    multisets of rows: the same schema, integers, decimals and strings
+    equal, floats to rtol 1e-9 (both sorted by their non-float columns,
+    then their floats)."""
+    import numpy as np
+
+    if got.schema != want.schema:
+        return [f"schema {got.schema} != {want.schema}"]
+    if got.num_rows != want.num_rows:
+        return [f"rows {got.num_rows} != {want.num_rows}"]
+    floats = [f.name for f in want.schema if pa.types.is_floating(f.type)]
+    keys = [(n, "ascending") for n in want.column_names
+            if n not in floats] + [(n, "ascending") for n in floats]
+    a, b = got.sort_by(keys), want.sort_by(keys)
+    out = []
+    for name in want.column_names:
+        x, y = a.column(name), b.column(name)
+        if name not in floats:
+            same = x.equals(y)
+        else:
+            valid = np.asarray(x.is_valid())
+            xs = np.asarray(x.fill_null(0.0), dtype=np.float64)
+            ys = np.asarray(y.fill_null(0.0), dtype=np.float64)
+            same = np.array_equal(valid, np.asarray(y.is_valid())) and \
+                bool(np.allclose(xs, ys, rtol=1e-9, atol=0.0,
+                                 equal_nan=True))
+        if not same:
+            out.append(f"{name}: values differ")
+    return out
